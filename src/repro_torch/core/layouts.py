@@ -1,0 +1,30 @@
+"""Padding helpers shared by every padded layout (kernel streams, grid
+cells, plan data).  Counterpart of ``repro.core.layouts`` (SoA only)."""
+
+from __future__ import annotations
+
+import torch
+
+
+def coord_sentinel(dtype, device=None):
+    """Large-but-finite padding coordinate ``finfo.max / 4``: its squared
+    distance overflows to +inf, so a pad point gets weight ``exp(-a*inf) = 0``
+    and never enters a k-best set."""
+    return torch.tensor(torch.finfo(dtype).max / 4, dtype=dtype, device=device)
+
+
+def pad_to(x, mult: int, value):
+    """Pad a 1-D tensor to the next multiple of ``mult`` with ``value``."""
+    pad = (-x.shape[0]) % mult
+    if pad == 0:
+        return x
+    fill = torch.as_tensor(value, dtype=x.dtype, device=x.device).expand(pad)
+    return torch.cat([x, fill])
+
+
+def pad_tail(x, n_pad: int):
+    """Pad a 1-D tensor by repeating its last element.  Used for query blocks
+    (a repeated query adds no new candidate cells to a block rectangle)."""
+    if n_pad == 0:
+        return x
+    return torch.cat([x, x[-1:].expand(n_pad)])
