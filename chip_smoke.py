@@ -8,7 +8,9 @@ CUDA toolkit.  It builds the hand-written kernels from
 ``src/repro_torch/kernels/csrc`` into ``build/repro_torch_kernels/`` and runs,
 in order (a failed check raises, and the script exits nonzero):
 
-1. build: each kernel's registers and spills, as ``ptxas -v`` prints them;
+1. build: each kernel's registers and spills, as ``ptxas -v`` prints them,
+   and the special-function-unit (MUFU) ops of the weight kernel's inner
+   loop, from its SASS;
 2. each kernel against its plain PyTorch version on the card, float32 and
    float64, at the shapes the main path gives it (m = 2^20);
 3. the golden fixture (``tests/fixtures/aidw_golden.npz``) for ``grid`` with
@@ -20,7 +22,8 @@ in order (a failed check raises, and the script exits nonzero):
    batch through ``pipeline="dense"`` and one through ``impl="tiled"``; each
    path with its launch counts, sampled queries held against a float64
    brute-force reference;
-6. each kernel timed with CUDA events at the serving batch's shapes.
+6. each kernel timed with CUDA events at the serving batch's shapes, and
+   B1 also on the ``tiled`` impl's shared data row.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Without a CUDA card,
@@ -30,6 +33,7 @@ or without the repository beside it, it exits nonzero and prints no result.
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -51,6 +55,8 @@ PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 PEAK_BYTES = 3.35e12
 # special-function units: 16 results per SM per clock, 132 SMs, 1.98 GHz boost
 PEAK_SFU = 132 * 16 * 1.98e9
+# instruction issue: 4 warp schedulers x 32 threads per SM per clock
+PEAK_ISSUE = 132 * 128 * 1.98e9
 
 KERNELS = {
     "knn_skip": dict(source="src/repro_torch/kernels/csrc/knn.cu",
@@ -72,6 +78,34 @@ def report(name, err, tol):
     check(err <= tol, f"{name}: {err} > {tol}")
 
 
+def inner_loop_sass(cuobjdump: str, lib: Path, kernel: str):
+    """The per-pair loop of ``kernel``'s SASS: the innermost loop with the
+    most MUFU.EX2 (one per exp).  Returns ``(instructions per pair, {MUFU
+    opcode: count per pair})``, or ``None`` when no such loop is found.
+    Also writes the library's SASS beside it as ``<lib>.sass``."""
+    text = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    lib.with_name(lib.name + ".sass").write_text(text)
+    func = next((f for f in text.split("Function : ")[1:] if f.startswith(kernel)), "")
+    instr = [(int(a, 16), op) for a, op in
+             re.findall(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", func)]
+    labels = {lab: int(a, 16) for lab, a in re.findall(r"(\.L_x_\d+):\s*\n\s*/\*([0-9a-f]+)\*/", func)}
+    spans = set()
+    for a, t in re.findall(r"/\*([0-9a-f]{4,})\*/[^\n]*?BRA\s+`?\(?(0x[0-9a-f]+|\.L_x_\d+)", func):
+        a, t = int(a, 16), labels.get(t) if t.startswith(".") else int(t, 16)
+        if t is not None and t <= a:
+            spans.add((t, a))
+    inner = [(t, a) for t, a in spans
+             if not any((t2, a2) != (t, a) and t <= t2 and a2 <= a for t2, a2 in spans)]
+    bodies = [[op for addr, op in instr if t <= addr <= a] for t, a in inner]
+    bodies = [b for b in bodies if "MUFU.EX2" in b]
+    if not bodies:
+        return None
+    body = max(bodies, key=lambda b: b.count("MUFU.EX2"))
+    per = body.count("MUFU.EX2")
+    return len(body) / per, {op: body.count(op) / per for op in sorted(set(body)) if op.startswith("MUFU")}
+
+
 def main():
     import torch
 
@@ -85,6 +119,7 @@ def main():
 
     from repro_torch.configs import AIDW_WORKLOADS
     from repro_torch.core.aidw import AIDWParams, aidw_reference
+    from repro_torch.core.layouts import coord_sentinel
     from repro_torch.data import clustered_points
     from repro_torch.engine import build_plan, execute, execute_with_stats
     from repro_torch.engine.execute import _grid_layout
@@ -105,6 +140,12 @@ def main():
         # the repo's fp slack for a sum of m terms taken in another order
         return FP_SLACK_ULPS * eps[dtype] * math.sqrt(m) * z_abs_max
 
+    def b2_rtol(dtype):
+        # kernel and plain version fold their tile sums at the same tile
+        # boundaries, in data order; only the order inside a tile differs,
+        # which moves z by a few ulps: 64 ulps of each z
+        return FP_SLACK_ULPS * eps[dtype]
+
     def sync():
         torch.cuda.synchronize()
 
@@ -118,6 +159,13 @@ def main():
     print(f"  built {sorted(p.name for p in paths.values())} in {time.time() - t0:.1f} s")
     for line in _build.ptxas_report():
         print("  ptxas", line)
+    cuobjdump = str(Path(_build.nvcc_path()).parent / "cuobjdump")
+    sass = inner_loop_sass(cuobjdump, paths["weight"], "_ZN4aidw13weight_kernelIfE")
+    if sass is None:
+        print("  weight_kernel<float> SASS: no per-pair loop found; MUFU count not measured")
+    else:
+        print(f"  weight_kernel<float> SASS per-pair loop: {sass[0]} instructions per pair, "
+              f"MUFU per pair {sass[1]}")
 
     wl = AIDW_WORKLOADS["aidw-pod-1m"]
     check(wl.m == M_FULL and wl.n == M_FULL and wl.k == 10, "aidw-pod-1m is m = n = 2^20, k = 10")
@@ -147,8 +195,17 @@ def main():
         z_k = weight_sweep(qxc, qyc, a_k * 0.5, dx, dy, dz, tile_d=512, eps=params.exact_hit_eps)
         z_p = weight_sweep_plain(qxc, qyc, a_k * 0.5, dx, dy, dz, tile_d=512, eps=params.exact_hit_eps)
         e_b2 = maxerr(z_k, z_p)
-        report(f"B2 {name}", e_b2, z_tol(dtype, M_FULL, zmax))
-        print(f"  B2 {name}: max rel err {float(((z_k - z_p) / z_p).abs().max()):.3e}")
+        print(f"  B2 {name}: max abs err {e_b2:.3e}")
+        report(f"B2 {name} relative", float(((z_k - z_p) / z_p).abs().max()), b2_rtol(dtype))
+        # the tolerance is tight enough to see a sweep that loses one tile
+        gone = torch.zeros_like(dx, dtype=torch.bool)
+        gone[:512] = True
+        sent = coord_sentinel(dtype, dev)
+        z_gone = weight_sweep_plain(qxc, qyc, a_k * 0.5, torch.where(gone, sent, dx), torch.where(gone, sent, dy),
+                                    dz, tile_d=512, eps=params.exact_hit_eps)
+        e_gone = float(((z_gone - z_p) / z_p).abs().max())
+        print(f"  B2 {name}: a sweep without its first tile is off by {e_gone:.3e} relative")
+        check(e_gone > b2_rtol(dtype), "the B2 tolerance catches a lost tile")
 
         plan = build_plan(dx, dy, dz, params=params, area=1.0, impl="grid")
         lay = _grid_layout(plan, qx, qy)
@@ -289,8 +346,8 @@ def main():
         print("  profile: the trace shows no device time; device busy share not measured")
 
     path_launches = {"grid/prefetch": main_launches}
-    for tag, p in (("grid/dense", dataclasses.replace(plan, pipeline="dense")),
-                   ("tiled", build_plan(dx, dy, dz, params=params, area=1.0, impl="tiled"))):
+    plan_t = build_plan(dx, dy, dz, params=params, area=1.0, impl="tiled")
+    for tag, p in (("grid/dense", dataclasses.replace(plan, pipeline="dense")), ("tiled", plan_t)):
         sync()
         _build.reset_launch_counts()
         t0 = time.time()
@@ -307,7 +364,6 @@ def main():
             print("  dense == prefetch bitwise: True")
         else:
             f64_check("tiled", qx, qy, z, a, SERVING[0][1])
-        del p
 
     # ------------------------------------------------------------ 6. timings
     print("== 6. kernel timings (CUDA events, serving batch n=65536, m=2^20)", flush=True)
@@ -340,36 +396,50 @@ def main():
                        lambda: weight_sweep_plain(lay.qx_s, lay.qy_s, ah_s, dxp, dyp, dzp,
                                                   tile_d=plan.block_d, eps=params.exact_hit_eps), 3),
     }
-    n_v, c_tot = lay.qx_v.shape[0], lay.cand_x.shape[1]
-    pairs = {
-        # what these inputs need: each block walks nt[i] tiles of its row
-        "knn_skip": plan.block_q * int(lay.num_tiles.long().sum()) * plan.cand_block_d,
-        "knn_soa": n_v * c_tot,
-        "weight_soa": lay.qx_s.shape[0] * dxp.shape[0],
-    }
-    row_bytes = {
-        "knn_skip": 2 * 4 * int(lay.num_tiles.long().sum()) * plan.cand_block_d + 3 * 4 * n_v,
-        "knn_soa": 2 * 4 * lay.cand_x.numel() + 3 * 4 * n_v,
-        "weight_soa": 3 * 4 * dxp.shape[0] + 4 * 4 * lay.qx_s.shape[0],
-    }
+    n_v = lay.qx_v.shape[0]
+    # what these inputs need: each block's nt[i] tiles of its row; the dense
+    # walk (B1) merges the same candidates, its tail past nt[i] is sentinel
+    cand_pairs = plan.block_q * int(lay.num_tiles.long().sum()) * plan.cand_block_d
+    cand_bytes = 2 * 4 * int(lay.num_tiles.long().sum()) * plan.cand_block_d + 3 * 4 * n_v
+    pairs = {"knn_skip": cand_pairs, "knn_soa": cand_pairs, "weight_soa": lay.qx_s.shape[0] * dxp.shape[0]}
+    row_bytes = {"knn_skip": cand_bytes, "knn_soa": cand_bytes,
+                 "weight_soa": 3 * 4 * dxp.shape[0] + 4 * 4 * lay.qx_s.shape[0]}
     # operations per pair, counted from the kernels' code: kNN 2 sub, 2 mul,
     # 1 add, 1 compare; weight the same 5 for d^2, max, mul, 2 adds, mul,
-    # compare, plus exp and log on the special-function units
-    flops = {"knn_skip": 6, "knn_soa": 6, "weight_soa": 11}
-    sfu = {"knn_skip": 0, "knn_soa": 0, "weight_soa": 2}
+    # compare, and exp and log counted as one operation each
+    flops = {"knn_skip": 6, "knn_soa": 6, "weight_soa": 13}
+
+    def bound(n_pairs, n_bytes, ops):
+        t_ops, t_bytes = n_pairs * ops / PEAK_FLOPS["float32"], n_bytes / PEAK_BYTES
+        return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
     rows_out = []
     for name, (kern, plain, reps) in calls.items():
         ms = time_ms(kern, reps)
         plain_ms = time_ms(plain, 1, warmup=0)
-        t_ops = max(pairs[name] * flops[name] / PEAK_FLOPS["float32"], pairs[name] * sfu[name] / PEAK_SFU)
-        t_bytes = row_bytes[name] / PEAK_BYTES
+        bound_ms, bound_by = bound(pairs[name], row_bytes[name], flops[name])
         launches = path_launches["grid/dense" if name == "knn_soa" else "grid/prefetch"][name]
         rows_out.append(dict(name=name, route="cuda", **KERNELS[name], launches=launches,
-                             max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
-                             bound_ms=1e3 * max(t_ops, t_bytes),
-                             bound_by="operations" if t_ops >= t_bytes else "bytes", library_ms=None))
-        print(f"  {name}: {ms} ms (plain {plain_ms} ms, bound {1e3 * max(t_ops, t_bytes)} ms, "
-              f"{pairs[name]} pairs)", flush=True)
+                             max_abs_err=errs[name], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, library_ms=None))
+        print(f"  {name}: {ms} ms (plain {plain_ms} ms, bound {bound_ms} ms, {pairs[name]} pairs)",
+              flush=True)
+    if sass is not None:
+        p2 = pairs["weight_soa"]
+        print(f"  weight_soa beside its bound: MUFU {1e3 * p2 * sum(sass[1].values()) / PEAK_SFU} ms "
+              f"({sass[1]} per pair at 16/SM/clock); instruction issue {1e3 * p2 * sass[0] / PEAK_ISSUE} "
+              f"ms ({sass[0]} SASS instructions per pair at 128/SM/clock)")
+
+    # B1 on the `tiled` impl's shared data row: every query walks all m points
+    qx_t, qy_t = qx.contiguous(), qy.contiguous()
+    dxt, dyt, _ = plan_t.data
+    shared = dict(block_q=plan_t.block_q, tile_d=plan_t.block_d, **kw)
+    ms = time_ms(lambda: knn_alpha(qx_t, qy_t, dxt[None], dyt[None], **shared), 3)
+    plain_ms = time_ms(lambda: knn_alpha_plain(qx_t, qy_t, dxt[None], dyt[None], **shared), 1, warmup=0)
+    sh_pairs = qx_t.shape[0] * M_FULL
+    bound_ms, bound_by = bound(sh_pairs, 2 * 4 * M_FULL + 3 * 4 * qx_t.shape[0], flops["knn_soa"])
+    print(f"  knn_soa shared row (tiled): {ms} ms (plain {plain_ms} ms, bound {bound_ms} ms by {bound_by}, "
+          f"{sh_pairs} pairs)", flush=True)
     print(f"  total {time.time() - t_start:.1f} s")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -60,14 +60,13 @@ def _seam_split_layout(plan: InterpolationPlan, qx_s, qy_s, cx_s, cy_s):
     return qx_s[src], qy_s[src], cx_s[src], cy_s[src], src, dest
 
 
-def _tile_table(need, capacity: int, block_d: int, pipeline: str):
-    """Per-block real-tile counts (int32): "prefetch" clamps each block to the
-    tiles its capacity-covered candidates occupy, "dense" walks every tile.
-    The tiles skipped are all sentinel, so both give the same alpha."""
-    if pipeline == "prefetch":
-        covered = need.clamp(max=capacity)
-        return ((covered + block_d - 1) // block_d).to(torch.int32)
-    return torch.full(need.shape, capacity // block_d, dtype=torch.int32, device=need.device)
+def _tile_table(need, capacity: int, block_d: int):
+    """Per-block real-tile counts (int32) of pipeline "prefetch": each block
+    walks only the tiles its capacity-covered candidates occupy.  The tiles
+    it skips are all sentinel, so the dense walk (no table) gives the same
+    alpha."""
+    covered = need.clamp(max=capacity)
+    return ((covered + block_d - 1) // block_d).to(torch.int32)
 
 
 def _grid_layout(plan: InterpolationPlan, qx, qy):
@@ -96,7 +95,7 @@ def _grid_layout(plan: InterpolationPlan, qx, qy):
     return types.SimpleNamespace(
         order=order, qx_s=qx_s, qy_s=qy_s, qx_v=qx_v, qy_v=qy_v, src=src, dest=dest,
         cand_x=cand_x, cand_y=cand_y, need=need,
-        num_tiles=_tile_table(need, plan.cand_capacity, plan.cand_block_d, "prefetch"),
+        num_tiles=_tile_table(need, plan.cand_capacity, plan.cand_block_d),
         over_b=over_b, over_q=over_v if dest is None else over_v[dest])
 
 

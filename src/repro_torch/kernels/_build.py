@@ -41,7 +41,7 @@ ENTRY_POINTS = {
     **{f"aidw_knn_alpha_{t}": ("knn", [_P, _P, _P, _P, ctypes.c_longlong, _P, _I, _I, _I, _I, _I, _I,
                                       _D, _D, _D, _D, _D, _D, _D, _D, _D, _P, _P])
        for t in ("f32", "f64")},
-    **{f"aidw_weight_{t}": ("weight", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _D, _D, _P, _P])
+    **{f"aidw_weight_{t}": ("weight", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _D, _D, _P, _P])
        for t in ("f32", "f64")},
 }
 

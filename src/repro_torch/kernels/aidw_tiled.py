@@ -26,8 +26,9 @@ from repro_torch.core.aidw import AIDWParams, expected_nn_distance, tiny_for
 from repro_torch.kernels import _build
 from repro_torch.kernels._common import alpha_from_best, merge_k_best, sq_dist_tile, weight_tile
 
-# the k values csrc/knn.cu is instantiated for
-SUPPORTED_K = (2, 3, 4, 5, 6, 8, 10, 12, 16, 20, 32)
+# the k values csrc/knn.cu is instantiated for: 10 (aidw-pod-1m and the
+# golden fixture) and 5; a new value goes here and into knn.cu's switch
+SUPPORTED_K = (5, 10)
 
 _KNN_THREADS = 256
 _WEIGHT_THREADS = 256
@@ -158,8 +159,8 @@ def weight_sweep(qx, qy, alpha_half, dx, dy, dz, *, tile_d: int, eps: float):
     """Exact Phase 2: z ``(n,)`` of each query from all data points.
 
     ``qx, qy, alpha_half (n,)``; ``dx, dy, dz (m,)`` sentinel-padded, with
-    ``m % tile_d == 0`` (``tile_d`` is the plain version's tile; the kernel
-    streams its own tiles and sums in data order).
+    ``m % tile_d == 0``.  Kernel and plain version both sum per tile of
+    ``tile_d`` points and fold the tile sums in data order.
     """
     m = dx.shape[0]
     if m % tile_d or not (dy.shape == dz.shape == dx.shape) or not (qy.shape == alpha_half.shape == qx.shape):
@@ -170,7 +171,7 @@ def weight_sweep(qx, qy, alpha_half, dx, dy, dz, *, tile_d: int, eps: float):
     out = torch.empty_like(qx)
     fn = _build.entry(f"aidw_weight_{_suffix(qx.dtype)}")
     err = fn(qx.data_ptr(), qy.data_ptr(), alpha_half.data_ptr(), dx.data_ptr(), dy.data_ptr(),
-             dz.data_ptr(), qx.shape[0], m, _WEIGHT_THREADS, float(eps), tiny_for(qx.dtype),
+             dz.data_ptr(), qx.shape[0], m, tile_d, _WEIGHT_THREADS, float(eps), tiny_for(qx.dtype),
              out.data_ptr(), torch.cuda.current_stream(qx.device).cuda_stream)
     _build.check(err, "weight_sweep launch")
     _build.LAUNCHES["weight_soa"] += 1

@@ -112,17 +112,8 @@ cudaError_t launch(const void* qx, const void* qy, const void* cx, const void* c
   case KV:              \
     return launch_k<T, KV>(a, b, x, y, row_stride, t, n, block_q, c_tot, tile_d, threads, c, out, s);
   switch (k) {
-    AIDW_K_CASE(2)
-    AIDW_K_CASE(3)
-    AIDW_K_CASE(4)
     AIDW_K_CASE(5)
-    AIDW_K_CASE(6)
-    AIDW_K_CASE(8)
     AIDW_K_CASE(10)
-    AIDW_K_CASE(12)
-    AIDW_K_CASE(16)
-    AIDW_K_CASE(20)
-    AIDW_K_CASE(32)
     default:
       break;
   }

@@ -7,25 +7,30 @@
 // on the grid path).
 //
 // Design: one thread per query; the data streams through shared memory in
-// tiles of blockDim points, every thread of the block reading the same
-// point (a broadcast).  Each thread accumulates sum(w), sum(w z), min d^2
-// and the z at the first minimum sequentially, with a strict `<` for the
-// minimum, which keeps the first index as weight_tile's rule does.  Like
-// the Pallas kernel, the sums are taken per tile and the tile sums folded
-// into running totals: a float32 sum of 2^20 terms in one accumulator would
-// lose the small far-field weights against the large near ones.  No
-// atomics and no split of the data axis: the sum order is fixed by the data
-// order alone, so results are the same bits from run to run and do not
-// depend on how many queries are launched together.
+// tiles of tile_d points (the plan's block_d, the Pallas kernel's data
+// tile), every thread of the block reading the same point (a broadcast).
+// Each thread accumulates sum(w), sum(w z), min d^2 and the z at the first
+// minimum sequentially, with a strict `<` for the minimum, which keeps the
+// first index as weight_tile's rule does.  Like the Pallas kernel, the sums
+// are taken per tile and the tile sums folded into running totals at the
+// same tile boundaries: a float32 sum of 2^20 terms in one accumulator
+// would lose the small far-field weights against the large near ones, and
+// with the same boundaries only the order inside a tile differs from the
+// plain version.  No atomics and no split of the data axis: the sum order
+// is fixed by the data order alone, so results are the same bits from run
+// to run and do not depend on how many queries are launched together.
 //
 // w = exp(-ah * log(max(d^2, tiny))) with precise expf/logf (exp/log for
 // double), never powf and never fast math.  A sentinel pad point has
 // d^2 = +inf, log = +inf and w = exp(-inf) = 0.
 //
-// What bounds it on an H100: the two transcendentals per pair (the special
-// function units issue 16 per SM per clock, a quarter of the FP32 rate,
-// and precise logf adds a range reduction in FP32), then the ~12 other
-// flops per pair.  Memory traffic is m points per CUDA block of queries.
+// What bounds it on an H100: instruction issue.  Besides the 11 flops for
+// d^2 and the sums, precise expf is an FP32 range reduction around one
+// MUFU.EX2 and precise logf an FP32 polynomial with no MUFU op, so the
+// per-pair loop issues several times more instructions than it does flops
+// or special-function ops (chip_smoke.py prints the count from the sm_90a
+// SASS).  Memory traffic is m points per CUDA block of queries, read from
+// L2 after the first block.
 #include "aidw_common.cuh"
 
 namespace aidw {
@@ -34,11 +39,11 @@ template <typename T>
 __global__ void weight_kernel(const T* __restrict__ qx, const T* __restrict__ qy,
                               const T* __restrict__ ah, const T* __restrict__ dx,
                               const T* __restrict__ dy, const T* __restrict__ dz, int n, int m,
-                              T eps, T tiny, T* __restrict__ out) {
+                              int tile_d, T eps, T tiny, T* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sx = reinterpret_cast<T*>(smem_raw);
-  T* sy = sx + blockDim.x;
-  T* sz = sy + blockDim.x;
+  T* sy = sx + tile_d;
+  T* sz = sy + tile_d;
 
   const long long q = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const bool live = q < n;
@@ -47,15 +52,14 @@ __global__ void weight_kernel(const T* __restrict__ qx, const T* __restrict__ qy
   const T neg_ah = live ? -ah[q] : T(0);
 
   T sum_w = T(0), sum_wz = T(0), min_d2 = T(INFINITY), hit_z = T(0);
-  for (int base = 0; base < m; base += blockDim.x) {
-    const int idx = base + threadIdx.x;
-    if (idx < m) {
-      sx[threadIdx.x] = dx[idx];
-      sy[threadIdx.x] = dy[idx];
-      sz[threadIdx.x] = dz[idx];
+  for (int base = 0; base < m; base += tile_d) {
+    const int cnt = min(tile_d, m - base);
+    for (int i = threadIdx.x; i < cnt; i += blockDim.x) {
+      sx[i] = dx[base + i];
+      sy[i] = dy[base + i];
+      sz[i] = dz[base + i];
     }
     __syncthreads();
-    const int cnt = min(static_cast<int>(blockDim.x), m - base);
     T tile_w = T(0), tile_wz = T(0);
     for (int j = 0; j < cnt; ++j) {
       const T d2 = sq_dist(px, py, sx[j], sy[j]);
@@ -77,27 +81,29 @@ __global__ void weight_kernel(const T* __restrict__ qx, const T* __restrict__ qy
 
 template <typename T>
 cudaError_t launch(const void* qx, const void* qy, const void* ah, const void* dx, const void* dy,
-                   const void* dz, int n, int m, int threads, double eps, double tiny, void* out,
-                   void* stream) {
+                   const void* dz, int n, int m, int tile_d, int threads, double eps, double tiny,
+                   void* out, void* stream) {
   if (n <= 0) return cudaSuccess;
-  if (threads <= 0 || threads > 1024) return cudaErrorInvalidValue;
+  const size_t smem = 3 * static_cast<size_t>(tile_d) * sizeof(T);
+  if (threads <= 0 || threads > 1024 || tile_d <= 0 || smem > 48 * 1024) return cudaErrorInvalidValue;
   const int blocks = (n + threads - 1) / threads;
-  const size_t smem = 3 * static_cast<size_t>(threads) * sizeof(T);
   weight_kernel<T><<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(qx), static_cast<const T*>(qy), static_cast<const T*>(ah),
-      static_cast<const T*>(dx), static_cast<const T*>(dy), static_cast<const T*>(dz), n, m,
+      static_cast<const T*>(dx), static_cast<const T*>(dy), static_cast<const T*>(dz), n, m, tile_d,
       static_cast<T>(eps), static_cast<T>(tiny), static_cast<T*>(out));
   return cudaGetLastError();
 }
 
 }  // namespace aidw
 
-// out[q] for q < n.  qx, qy, ah (= alpha / 2): (n,); dx, dy, dz: (m,).
-#define AIDW_WEIGHT_ENTRY(NAME, T)                                                              \
-  extern "C" cudaError_t NAME(const void* qx, const void* qy, const void* ah, const void* dx,  \
-                              const void* dy, const void* dz, int n, int m, int threads,        \
-                              double eps, double tiny, void* out, void* stream) {               \
-    return aidw::launch<T>(qx, qy, ah, dx, dy, dz, n, m, threads, eps, tiny, out, stream);      \
+// out[q] for q < n.  qx, qy, ah (= alpha / 2): (n,); dx, dy, dz: (m,),
+// summed in tiles of tile_d points (3 * tile_d values fit 48 KiB of shared
+// memory).
+#define AIDW_WEIGHT_ENTRY(NAME, T)                                                               \
+  extern "C" cudaError_t NAME(const void* qx, const void* qy, const void* ah, const void* dx,   \
+                              const void* dy, const void* dz, int n, int m, int tile_d,          \
+                              int threads, double eps, double tiny, void* out, void* stream) {   \
+    return aidw::launch<T>(qx, qy, ah, dx, dy, dz, n, m, tile_d, threads, eps, tiny, out, stream); \
   }
 
 AIDW_WEIGHT_ENTRY(aidw_weight_f32, float)
