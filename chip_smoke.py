@@ -23,7 +23,20 @@ in order (a failed check raises, and the script exits nonzero):
    path with its launch counts, sampled queries held against a float64
    brute-force reference;
 6. each kernel timed with CUDA events at the serving batch's shapes, and
-   B1 also on the ``tiled`` impl's shared data row.
+   B1 also on the ``tiled`` impl's shared data row;
+7. the far-field kernels (``phase2="farfield"``) against their plain
+   versions on the card, float32 and float64, at the serving batch's shapes:
+   B4 (near field) and B5 (far cells), with controls that a sweep dropping
+   one tile, one near point or one far cell fails the check;
+8. the golden far-field pin (``ffpin_*`` of the fixture) on the card;
+9. the far-field plan built on the card against the one built on the CPU;
+10. the far-field serving run of ``aidw-pod-1m``: the same four batches, the
+    radius, bound and warning of the plan, each batch's time, stats and
+    launches, its error against the Kahan oracle on sampled queries, and B4
+    and B5 at its shapes against their plain versions on sampled blocks;
+11. the far-field overflow arm at the reference test's small shape, bitwise
+    against an exact plan;
+12. B4 and B5 timed with CUDA events at the serving batch's shapes.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Without a CUDA card,
@@ -37,6 +50,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -44,11 +58,16 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "fixtures" / "aidw_golden.npz"
 GOLDEN_RTOL, GOLDEN_ATOL = 5e-4, 5e-5  # tests/test_golden.py
-FP_SLACK_ULPS = 64                     # src/repro/core/accuracy.py: fp slack per sqrt(m)
+FP_SLACK_ULPS = 64                     # src/repro_torch/core/accuracy.py: fp slack per sqrt(m)
 M_FULL = 1 << 20                       # aidw-pod-1m: the paper's 1000K rounded to 2^20
 SERVING = [(65536, 1), (65536, 2), (65536, 3), (M_FULL, 4)]  # (queries, seed)
 N_SAMPLE = 1024                        # queries per batch held against the f64 reference
 N_CHECK = 2048                         # queries of the shared-row kernel checks
+# B4/B5 against their plain versions: the same terms summed in the same
+# order (kernels/_common.py: run_sum), so the sums differ only where the
+# card's exp/log in the kernel and in PyTorch give a term other last bits
+SUM_ULPS = 8
+N_BLOCKS = 64                          # blocks of each far-field serving batch held against plain
 
 # H100 SXM published peaks (NVIDIA data sheet), non-tensor-core
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
@@ -65,6 +84,10 @@ KERNELS = {
                     replaces="src/repro/kernels/aidw_tiled.py:39 _knn_kernel_soa"),
     "weight_soa": dict(source="src/repro_torch/kernels/csrc/weight.cu",
                        replaces="src/repro/kernels/aidw_tiled.py:69 _weight_kernel_soa"),
+    "near_weight": dict(source="src/repro_torch/kernels/csrc/near.cu",
+                        replaces="src/repro/kernels/aidw_grid.py:257 _near_weight_kernel"),
+    "far_cell": dict(source="src/repro_torch/kernels/csrc/far.cu",
+                     replaces="src/repro/kernels/aidw_grid.py:328 _far_cell_kernel"),
 }
 
 
@@ -76,6 +99,35 @@ def check(ok, what):
 def report(name, err, tol):
     print(f"  {name}: max err {err:.3e} (tolerance {tol:.3e})", flush=True)
     check(err <= tol, f"{name}: {err} > {tol}")
+
+
+def profile_batch(tag, run):
+    """Where one batch's device time goes (CUPTI trace): "busy" is the summed
+    time of the device's own events (kernels, copies, memsets), not of the
+    host-side ops that launched them, over the batch's wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.time() - t0)
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    events = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA), key=dev_us, reverse=True)
+    busy_ms = sum(dev_us(e) for e in events) / 1e3
+    if busy_ms > 0:
+        print(f"  profile {tag}: wall {wall_ms} ms, device busy {busy_ms} ms "
+              f"({100 * busy_ms / wall_ms:.1f}%), idle {100 * (1 - busy_ms / wall_ms):.1f}%")
+        for e in events[:10]:
+            print(f"    {dev_us(e) / 1e3} ms  x{e.count} {e.key[:70]}")
+    else:
+        print("  profile: the trace shows no device time; device busy share not measured")
 
 
 def inner_loop_sass(cuobjdump: str, lib: Path, kernel: str):
@@ -317,33 +369,9 @@ def main():
               f"finite outputs of shape ({n},)")
         f64_check(f"batch n={n} seed={seed}", qx, qy, z, a, seed)
 
-    # where one serving batch's device time goes (CUPTI trace); "busy" is the
-    # summed time of the device's own events (kernels, copies, memsets), not
-    # of the host-side ops that launched them, over the batch's wall time
+    # where one serving batch's device time goes
     qx, qy = batches[0]
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    sync()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        execute_with_stats(plan, qx, qy)
-        sync()
-        wall_ms = 1e3 * (time.time() - t0)
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
-    events = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-                    key=dev_us, reverse=True)
-    busy_ms = sum(dev_us(e) for e in events) / 1e3
-    if busy_ms > 0:
-        print(f"  profile n={qx.shape[0]}: wall {wall_ms} ms, device busy {busy_ms} ms "
-              f"({100 * busy_ms / wall_ms:.1f}%), idle {100 * (1 - busy_ms / wall_ms):.1f}%")
-        for e in events[:10]:
-            print(f"    {dev_us(e) / 1e3} ms  x{e.count} {e.key[:70]}")
-    else:
-        print("  profile: the trace shows no device time; device busy share not measured")
+    profile_batch(f"n={qx.shape[0]}", lambda: execute_with_stats(plan, qx, qy))
 
     path_launches = {"grid/prefetch": main_launches}
     plan_t = build_plan(dx, dy, dz, params=params, area=1.0, impl="tiled")
@@ -440,6 +468,10 @@ def main():
     bound_ms, bound_by = bound(sh_pairs, 2 * 4 * M_FULL + 3 * 4 * qx_t.shape[0], flops["knn_soa"])
     print(f"  knn_soa shared row (tiled): {ms} ms (plain {plain_ms} ms, bound {bound_ms} ms by {bound_by}, "
           f"{sh_pairs} pairs)", flush=True)
+    rows_out += farfield_phases(
+        dev=dev, params=params, golden=golden, eps=eps, data=data, queries=queries, sync=sync,
+        maxerr=maxerr, time_ms=time_ms, bound=bound, batches=batches, results=results,
+        exact_b2_ms=next(r["ms"] for r in rows_out if r["name"] == "weight_soa"))
     print(f"  total {time.time() - t_start:.1f} s")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -449,6 +481,352 @@ def main():
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def farfield_phases(*, dev, params, golden, eps, data, queries, sync, maxerr, time_ms, bound, batches,
+                    results, exact_b2_ms):
+    """Phases 7-12: the far-field Phase 2 (``phase2="farfield"``) on the card,
+    with main's data, helpers, and the exact path's serving batches, their
+    results and B2's time.  Returns the B4 and B5 rows of the kernels line."""
+    import torch
+
+    from repro_torch.core.accuracy import aidw_interpolate_kahan, farfield_error_report
+    from repro_torch.core.aidw import AIDWParams
+    from repro_torch.core.grid import build_grid
+    from repro_torch.core.layouts import coord_sentinel
+    from repro_torch.engine import build_plan, execute, execute_with_stats
+    from repro_torch.engine.execute import _grid_layout, _near_field
+    from repro_torch.errors import UnprovableRtolWarning
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.aidw_grid import (
+        phase1_alpha_from_candidates,
+        phase2_far_aggregates,
+        phase2_far_aggregates_plain,
+        phase2_near_weights,
+        phase2_near_weights_plain,
+    )
+
+    f32, f64 = torch.float32, torch.float64
+    hit_eps = params.exact_hit_eps
+
+    def ff_plan(dx, dy, dz, device=None):
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            p = build_plan(dx, dy, dz, params=params, area=1.0, impl="grid", phase2="farfield", device=device)
+        return p, [str(w.message) for w in rec if issubclass(w.category, UnprovableRtolWarning)]
+
+    def ff_inputs(p, qx, qy):
+        # the kernels' inputs as the engine makes them, alpha from Phase 1
+        lay = _grid_layout(p, qx, qy)
+        near = _near_field(p, lay.cx_v, lay.cy_v)
+        alpha = phase1_alpha_from_candidates(lay.qx_v, lay.qy_v, lay.cand_x, lay.cand_y, params=params,
+                                             area=1.0, m_real=M_FULL, block_q=p.block_q,
+                                             block_d=p.cand_block_d, num_tiles=lay.num_tiles)
+        return lay, near, alpha * 0.5
+
+    def ulps(k, p, dtype):
+        # largest |kernel - plain| / plain in ulps of the dtype, over nonzero sums
+        k, p = k.double(), p.double()
+        nz = p != 0
+        return float(((k - p).abs()[nz] / p[nz]).max()) / eps[dtype] if bool(nz.any()) else 0.0
+
+    def z_of(sw_n, swz_n, md_n, hz_n, sw_f, swz_f):
+        return torch.where(md_n <= hit_eps, hz_n, (swz_n + swz_f) / (sw_n + sw_f))
+
+    def hold(tag, k, pl, dtype):
+        # kernel against plain on the same inputs: sum w and sum w z within
+        # SUM_ULPS of each sum, zero where the plain sum is zero; B4's
+        # min d^2 and hit z bit for bit
+        for s_k, s_p in zip(k[:2], pl[:2]):
+            check(torch.equal(s_k == 0, s_p == 0), f"{tag}: the same sums are 0")
+        e = max(ulps(k[0], pl[0], dtype), ulps(k[1], pl[1], dtype))
+        same = e == 0.0 and all(torch.equal(a, b) for a, b in zip(k, pl))
+        same_min = len(k) == 2 or (torch.equal(k[2], pl[2]) and torch.equal(k[3], pl[3]))
+        check(e <= SUM_ULPS and same_min, f"{tag} matches its plain version ({e} ulps)")
+        return e, same, same_min
+
+    def near_of(lay, near, ah, block_q, blocks=None):
+        # B4's and B5's arguments (B5's less the plan's cell arrays), for all
+        # blocks or for the rows of `blocks`
+        qx, qy, rects = lay.qx_v, lay.qy_v, near.rects
+        cand = (near.cand_x, near.cand_y, near.cand_z, near.num_tiles)
+        if blocks is not None:
+            rows = (blocks[:, None] * block_q + torch.arange(block_q, device=dev)).reshape(-1)
+            qx, qy, ah, rects = qx[rows], qy[rows], ah[rows], rects[blocks]
+            cand = tuple(c[blocks] for c in cand)
+        return (qx, qy, ah, *cand), (qx, qy, ah, rects)
+
+    # ------------------------------------------------ 7. B4, B5 vs plain
+    print("== 7. far-field kernels B4 (near.cu) and B5 (far.cu) vs their plain versions (aidw-pod-1m "
+          "far-field plan, serving batch n=65536)", flush=True)
+    ff_errs, ff32 = {}, None
+    for dtype in (f32, f64):
+        name = str(dtype).split(".")[1]
+        dd = data(dtype)
+        check(bool((dd[2] > 0).all()), "the data's z is positive")
+        p, _ = ff_plan(*dd)
+        qx, qy = queries(*SERVING[0], dtype)
+        lay, near, ah = ff_inputs(p, qx, qy)
+        nk = dict(block_q=p.block_q, tile_d=p.p2_block_d)
+        fk = dict(block_q=p.block_q, tile_d=p.p2_far_block_d)
+        near_args, far_args = near_of(lay, near, ah, p.block_q)
+        n_k, n_p = phase2_near_weights(*near_args, **nk), phase2_near_weights_plain(*near_args, **nk)
+        f_k = phase2_far_aggregates(*far_args, p.far, **fk)
+        f_p = phase2_far_aggregates_plain(*far_args, p.far, **fk)
+        sync()
+        e_n, same_n, same_min = hold(f"B4 {name}", n_k, n_p, dtype)
+        e_f, same_f, _ = hold(f"B5 {name}", f_k, f_p, dtype)
+        # controls, each a plain sweep of the same inputs less a little:
+        # B4 without its first tile, and without the first point of each row;
+        # B5 without its first tile of cells, and without one cell (the
+        # occupied cell of median count)
+        sent = coord_sentinel(dtype, dev)
+
+        def near_less(drop):
+            cx, cy = torch.where(drop, sent, near.cand_x), torch.where(drop, sent, near.cand_y)
+            return phase2_near_weights_plain(*near_args[:3], cx, cy, *near_args[5:], **nk)
+
+        def far_less(drop):
+            cnt, zs = torch.where(drop, 0.0, p.far[2]), torch.where(drop, 0.0, p.far[3])
+            return phase2_far_aggregates_plain(*far_args, (*p.far[:2], cnt, zs, *p.far[4:]), **fk)
+
+        drop = torch.zeros_like(near.cand_x, dtype=torch.bool)
+        drop[:, :p.p2_block_d] = True
+        e_ntile = ulps(near_less(drop)[0], n_p[0], dtype)
+        drop = torch.zeros_like(near.cand_x, dtype=torch.bool)
+        drop[:, 0] = True
+        e_npt = ulps(near_less(drop)[0], n_p[0], dtype)
+        drop = torch.zeros_like(p.far[2], dtype=torch.bool)
+        drop[:p.p2_far_block_d] = True
+        e_ftile = ulps(far_less(drop)[0], f_p[0], dtype)
+        occupied = torch.nonzero(p.far[2] > 0).reshape(-1)
+        median_cell = occupied[torch.argsort(p.far[2][occupied], stable=True)[occupied.numel() // 2]]
+        drop = torch.zeros_like(p.far[2], dtype=torch.bool)
+        drop[median_cell] = True
+        e_fcell = ulps(far_less(drop)[0], f_p[0], dtype)
+        z_pp = z_of(*n_p, *f_p)
+        ez_n, ez_f = maxerr(z_of(*n_k, *f_p), z_pp), maxerr(z_of(*n_p, *f_k), z_pp)
+        full = p.p2_capacity // p.p2_block_d
+        short = int((near.num_tiles < full).sum())
+        print(f"  B4 {name}: sum_w, sum_wz within {e_n:.2f} ulps (tolerance {SUM_ULPS}), all four outputs "
+              f"bitwise equal: {same_n}; min d^2 and hit z equal: {same_min}; z max abs err {ez_n:.3e}; "
+              f"{short} of {near.num_tiles.shape[0]} rows walk fewer than {full} tiles")
+        print(f"  B4 {name} controls: the plain sweep without its first tile is off by {e_ntile:.3e} ulps, "
+              f"without the first point of each row by {e_npt:.3e} ulps")
+        print(f"  B5 {name}: sum_w, sum_wz within {e_f:.2f} ulps (tolerance {SUM_ULPS}), bitwise equal: {same_f}; "
+              f"z max abs err {ez_f:.3e}")
+        print(f"  B5 {name} controls: the plain sweep without its first tile of cells is off by {e_ftile:.3e} "
+              f"ulps, without cell {int(median_cell)} (count {float(p.far[2][median_cell])}, the median of "
+              f"{occupied.numel()} occupied cells) by {e_fcell:.3e} ulps", flush=True)
+        check(min(e_ntile, e_npt, e_ftile, e_fcell) > SUM_ULPS,
+              f"the B4/B5 tolerance catches a lost tile, point and cell ({name})")
+        check(short > 0, "some near rows walk fewer tiles than the capacity")
+        if dtype == f32:
+            ff_errs = {"near_weight": ez_n, "far_cell": ez_f}
+            ff32 = (p, lay, near, ah)
+        del n_k, n_p, f_k, f_p, drop
+
+    # ---------------------------------------------------- 8. golden pin
+    print("== 8. golden far-field pin (ffpin) on the card", flush=True)
+    arr = [torch.as_tensor(golden[f"uniform_{n}"]).to(dev) for n in ("dx", "dy", "dz", "qx", "qy")]
+    gp = AIDWParams(k=int(golden["k"]), area=float(golden["area"]))
+    gxp = int(golden["ffpin_gx"])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        pin = build_plan(*arr[:3], params=gp, area=gp.area, impl="grid", grid=build_grid(*arr[:3], gx=gxp, gy=gxp),
+                         phase2="farfield", farfield_radius=int(golden["ffpin_radius"]), block_q=64)
+    z, a = execute(pin, arr[3], arr[4])
+    ez = np.abs(z.cpu().double().numpy() - golden["ffpin_z"])
+    ea = np.abs(a.cpu().double().numpy() - golden["ffpin_alpha"])
+    print(f"  ffpin: max |dz| {ez.max():.3e} (limit 2e-6 + 2e-6 |z|), max |dalpha| {ea.max():.3e} (limit 1e-6)")
+    check(bool((ez <= 2e-6 + 2e-6 * np.abs(golden["ffpin_z"])).all() and (ea <= 1e-6).all()), "golden ffpin")
+
+    # ---------------------------------------------- 9. card plan vs CPU plan
+    print("== 9. far-field plan: built on the card vs built on the CPU (aidw-pod-1m, float32)", flush=True)
+    dx, dy, dz = data(f32)
+    sync()
+    t0 = time.time()
+    plan_ff, warned = ff_plan(dx, dy, dz)
+    sync()
+    ff_build_s = time.time() - t0
+    t0 = time.time()
+    plan_cpu, warned_cpu = ff_plan(dx.cpu(), dy.cpu(), dz.cpu(), device="cpu")
+    cpu_build_s = time.time() - t0
+    diffs = [f for f in ("cand_capacity", "cand_block_d", "seam_level", "grid_rebuilds", "block_d",
+                         "farfield_radius", "farfield_bound", "p2_capacity", "p2_block_d", "p2_far_block_d")
+             if getattr(plan_ff, f) != getattr(plan_cpu, f)]
+    g_c, g_h = plan_ff.grid, plan_cpu.grid
+    if (g_c.gx, g_c.gy, g_c.cap) != (g_h.gx, g_h.gy, g_h.cap):
+        diffs.append("grid shape")
+    for f in ("counts", "cum", "starts"):
+        if not torch.equal(getattr(g_c, f).cpu(), getattr(g_h, f)):
+            diffs.append(f)
+    if not torch.equal(plan_ff.r_need.cpu(), plan_cpu.r_need):
+        diffs.append("r_need")
+    for i, f in ((2, "count"), (4, "ix"), (5, "iy")):
+        if not torch.equal(plan_ff.far[i].cpu(), plan_cpu.far[i]):
+            diffs.append(f"far {f}")
+    if warned != warned_cpu:
+        diffs.append("warnings")
+    far_diff = max(maxerr(plan_ff.far[i].cpu(), plan_cpu.far[i]) for i in (0, 1, 3))
+    print(f"  built in {ff_build_s} s on the card, {cpu_build_s} s on the CPU; integer state, bound and "
+          f"warnings equal: {not diffs} {diffs}; centroids and z-sums max |diff| {far_diff}")
+    check(not diffs, "the card's far-field plan equals the CPU's")
+    del plan_cpu
+
+    # ------------------------------------------------- 10. far-field serving
+    print(f"== 10. far-field serving: aidw-pod-1m, clustered m = 2^20, k = 10, float32, farfield_rtol = "
+          f"{plan_ff.farfield_rtol}", flush=True)
+    print(f"  plan: radius {plan_ff.farfield_radius}, bound {plan_ff.farfield_bound}, UnprovableRtolWarning "
+          f"fired: {bool(warned)}; p2_capacity {plan_ff.p2_capacity}, p2_block_d {plan_ff.p2_block_d}, "
+          f"p2_far_block_d {plan_ff.p2_far_block_d}, {plan_ff.grid.n_cells} cells ({plan_ff.far[0].shape[0]} "
+          f"padded)")
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    ff_results = []
+    for (n, seed), (qx, qy), (_, _, _, exact_wall) in zip(SERVING, batches, results):
+        before = dict(_build.LAUNCHES)
+        sync()
+        t0 = time.time()
+        z, a, stats = execute_with_stats(plan_ff, qx, qy)
+        sync()
+        wall = time.time() - t0
+        delta = {k: _build.LAUNCHES[k] - before[k] for k in before}
+        ff_results.append((z, a, stats))
+        n_over = int(stats["p2_overflow_queries"])
+        print(f"  batch n={n} seed={seed}: {wall} s (exact path {exact_wall} s, {exact_wall / wall:.2f}x), "
+              f"near_points_mean {float(stats['near_points_mean'])}, far_cells_mean "
+              f"{float(stats['far_cells_mean'])}, p2_overflow_queries {n_over}, overflow_queries "
+              f"{int(stats['overflow_queries'])}, launches {delta}", flush=True)
+        check(delta["near_weight"] == 1 and delta["far_cell"] == 1 and delta["knn_skip"] == 1,
+              "each batch launches B3, B4 and B5 once")
+        check(delta["weight_soa"] == (1 if n_over else 0), "B2 runs once if a near field overflows, else never")
+    ff_launches = dict(_build.LAUNCHES)
+    print(f"  launches on the far-field path: {ff_launches}")
+    print(f"  max memory allocated {torch.cuda.max_memory_allocated()} bytes")
+    check(ff_launches["near_weight"] > 0 and ff_launches["far_cell"] > 0, "the far-field path launched B4 and B5")
+    scale = float(dz.abs().max())
+    fp_slack = FP_SLACK_ULPS * eps[f32] * math.sqrt(M_FULL)
+    for (n, seed), (qx, qy), (z, a, _), (_, a_exact, _, _) in zip(SERVING, batches, ff_results, results):
+        check(bool(torch.isfinite(z).all()) and z.shape == (n,), f"finite z of shape ({n},)")
+        check(torch.equal(a, a_exact), "alpha equals the exact path's bit for bit")
+        idx = torch.as_tensor(np.random.default_rng(seed).choice(n, N_SAMPLE, replace=False), device=dev)
+        z_ref, _ = aidw_interpolate_kahan(dx, dy, dz, qx[idx], qy[idx], params, area=1.0)
+        batch_rel = maxerr(z[idx], z_ref) / scale
+        rep = farfield_error_report(plan_ff, qx[idx], qy[idx])
+        print(f"  batch n={n} seed={seed}: {N_SAMPLE} sampled queries of the batch off the Kahan oracle by "
+              f"{batch_rel:.3e} relative; farfield_error_report on them as a batch: max_rel_err "
+              f"{rep['max_rel_err']:.3e}, rms {rep['rms_rel_err']:.3e}, bound {rep['bound']} + fp slack "
+              f"{rep['fp_slack']:.3e}, within_bound {rep['within_bound']}", flush=True)
+        check(batch_rel <= plan_ff.farfield_bound + fp_slack and rep["within_bound"],
+              f"far-field batch n={n} within its proved bound")
+        # B4 and B5 at this batch's shapes, against their plain versions on
+        # N_BLOCKS sampled query blocks
+        lay, near, ah = ff_inputs(plan_ff, qx, qy)
+        near_args, far_args = near_of(lay, near, ah, plan_ff.block_q)
+        n_k = phase2_near_weights(*near_args, block_q=plan_ff.block_q, tile_d=plan_ff.p2_block_d)
+        f_k = phase2_far_aggregates(*far_args, plan_ff.far, block_q=plan_ff.block_q,
+                                    tile_d=plan_ff.p2_far_block_d)
+        nb = near.rects.shape[0]
+        blocks = torch.as_tensor(np.sort(np.random.default_rng(seed).choice(nb, min(N_BLOCKS, nb), replace=False)),
+                                 device=dev)
+        rows = (blocks[:, None] * plan_ff.block_q + torch.arange(plan_ff.block_q, device=dev)).reshape(-1)
+        near_s, far_s = near_of(lay, near, ah, plan_ff.block_q, blocks)
+        n_p = phase2_near_weights_plain(*near_s, block_q=plan_ff.block_q, tile_d=plan_ff.p2_block_d)
+        f_p = phase2_far_aggregates_plain(*far_s, plan_ff.far, block_q=plan_ff.block_q,
+                                          tile_d=plan_ff.p2_far_block_d)
+        e_n, same_n, _ = hold(f"B4 batch n={n}", tuple(o[rows] for o in n_k), n_p, f32)
+        e_f, same_f, _ = hold(f"B5 batch n={n}", tuple(o[rows] for o in f_k), f_p, f32)
+        print(f"  batch n={n} seed={seed}: B4 and B5 on {blocks.numel()} of its {nb} query blocks against their "
+              f"plain versions: within {e_n:.2f} and {e_f:.2f} ulps (tolerance {SUM_ULPS}), bitwise equal: "
+              f"{same_n} and {same_f}", flush=True)
+        del lay, near, ah, near_args, far_args, n_k, f_k
+    qx, qy = batches[0]
+    z2, a2, _ = execute_with_stats(plan_ff, qx, qy)
+    check(torch.equal(z2, ff_results[0][0]) and torch.equal(a2, ff_results[0][1]), "far-field run-to-run bits")
+    print("  far-field run-to-run bitwise equal: True")
+
+    profile_batch(f"far-field n={qx.shape[0]}", lambda: execute_with_stats(plan_ff, qx, qy))
+
+    # ------------------------------------------------- 11. overflow arm
+    print("== 11. far-field overflow arm: 4,096 points, 96 queries over [-3, 3]^2, radius 1", flush=True)
+    rng = np.random.default_rng(14)
+    odx, ody = rng.random(4096).astype(np.float32), rng.random(4096).astype(np.float32)
+    odz = (np.sin(6 * odx) * np.cos(6 * ody) + 2.0).astype(np.float32)
+    oqx = torch.as_tensor((rng.random(96) * 6 - 3).astype(np.float32), device=dev)
+    oqy = torch.as_tensor((rng.random(96) * 6 - 3).astype(np.float32), device=dev)
+    op = AIDWParams(k=10, area=1.0, r_max=64.0)
+    od = [torch.as_tensor(v, device=dev) for v in (odx, ody, odz)]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        pf = build_plan(*od, params=op, area=1.0, impl="grid", phase2="farfield", farfield_radius=1,
+                        query_occupancy=64.0)
+        pe = build_plan(*od, params=op, area=1.0, impl="grid", query_occupancy=64.0)
+    _build.reset_launch_counts()
+    sync()
+    t0 = time.time()
+    z_ff, a_ff, st = execute_with_stats(pf, oqx, oqy)
+    sync()
+    o_wall = time.time() - t0
+    o_launches = dict(_build.LAUNCHES)
+    z_ex, a_ex = execute(pe, oqx, oqy)
+    same = torch.equal(z_ff, z_ex) and torch.equal(a_ff, a_ex)
+    print(f"  {o_wall} s, p2_capacity {pf.p2_capacity} of m = {pf.m}; p2_overflow_queries "
+          f"{int(st['p2_overflow_queries'])} of 96; launches {o_launches}; z and alpha equal the exact plan's "
+          f"bit for bit: {same}")
+    check(int(st["p2_overflow_queries"]) == 96 and o_launches["weight_soa"] == 1, "the batch overflows into B2")
+    check(same, "the overflow arm is the exact plan's, bit for bit")
+
+    # ------------------------------------------------- 12. B4, B5 timings
+    print("== 12. far-field kernel timings (CUDA events, serving batch n=65536, m=2^20, float32)", flush=True)
+    p, lay, near, ah = ff32
+    nk = dict(block_q=p.block_q, tile_d=p.p2_block_d)
+    fk = dict(block_q=p.block_q, tile_d=p.p2_far_block_d)
+    near_args, far_args = near_of(lay, near, ah, p.block_q)
+    far_args = (*far_args, p.far)
+    n_v, nb, ncp = lay.qx_v.shape[0], near.rects.shape[0], p.far[0].shape[0]
+    tiles = int(near.num_tiles.long().sum())
+    # What these inputs need.  B4: each block's nt[i] tiles of its near row,
+    # 13 operations per pair as B2 (d^2 5, max, mul, 2 adds, mul, compare,
+    # exp and log one each).  B5: a term for each occupied cell outside the
+    # block's rectangle (pad cells, empty cells and the rectangle's own add
+    # 0), 13 operations per pair (w 9, 2 muls, 2 adds), plus one rectangle
+    # test (4 compares and a select) per block and cell.  Bytes: each input
+    # read once, each output written once.
+    ix, iy, occupied = p.far[4].long(), p.far[5].long(), p.far[2] > 0
+    far_pairs = 0
+    for r in near.rects.long().split(64):
+        inside = (ix >= r[:, 0:1]) & (ix <= r[:, 1:2]) & (iy >= r[:, 2:3]) & (iy <= r[:, 3:4])
+        far_pairs += int((occupied & ~inside).sum())
+    far_pairs *= p.block_q
+    near_pairs = p.block_q * tiles * p.p2_block_d
+    print(f"  {int(occupied.sum())} of {ncp} padded cells occupied; B5 needs {far_pairs} query-cell pairs "
+          f"({far_pairs / n_v} per query) of the {n_v * ncp} its launch walks")
+    specs = {
+        "near_weight": (lambda: phase2_near_weights(*near_args, **nk),
+                        lambda: phase2_near_weights_plain(*near_args, **nk),
+                        near_pairs, 13 * near_pairs,
+                        3 * 4 * tiles * p.p2_block_d + 4 * nb + 3 * 4 * n_v + 4 * 4 * n_v),
+        "far_cell": (lambda: phase2_far_aggregates(*far_args, **fk),
+                     lambda: phase2_far_aggregates_plain(*far_args, **fk),
+                     far_pairs, 13 * far_pairs + 5 * nb * ncp, 6 * 4 * ncp + 16 * nb + 3 * 4 * n_v + 2 * 4 * n_v),
+    }
+    rows = []
+    total_ms = 0.0
+    for name, (kern, plain, n_pairs, ops, n_bytes) in specs.items():
+        ms = time_ms(kern, 10)
+        plain_ms = time_ms(plain, 1, warmup=0)
+        bound_ms, bound_by = bound(ops, n_bytes, 1)
+        total_ms += ms
+        rows.append(dict(name=name, route="cuda", **KERNELS[name], launches=ff_launches[name],
+                         max_abs_err=ff_errs[name], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=None))
+        print(f"  {name}: {ms} ms (plain {plain_ms} ms, bound {bound_ms} ms by {bound_by}, {n_pairs} pairs, "
+              f"{ops} operations)", flush=True)
+    print(f"  B4 + B5 {total_ms} ms per 65,536-query batch against exact B2's {exact_b2_ms} ms "
+          f"(phase 6), {exact_b2_ms / total_ms:.2f}x")
+    return rows
 
 
 if __name__ == "__main__":

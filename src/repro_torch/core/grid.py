@@ -1,5 +1,6 @@
-"""Uniform-grid spatial partition for the Phase-1 kNN search.
-Counterpart of the exact-path part of ``repro.core.grid``.
+"""Uniform-grid spatial partition for the Phase-1 kNN search, and the
+per-cell aggregates of the far-field Phase 2.  Counterpart of the exact-path
+and single-level far-field parts of ``repro.core.grid``.
 
 Points are bucketed into ``gx x gy`` cells and kept twice: a padded
 ``(n_cells + 1, cap)`` layout (sentinel-filled; the last row is all
@@ -24,6 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -366,3 +368,82 @@ def seam_layout(seg_sorted, n_segments: int, block_q: int, n_slots: int):
     src = src.clamp(max=n_tot - 1)  # trailing slots (and empty tail segments)
     dest = padded[seg] + torch.arange(n_tot, device=dev) - starts[seg]
     return src, dest
+
+
+def xla_row_sum(v):
+    """Row sums of ``v (rows, n)`` in the order the reference's CPU backend
+    (XLA) takes them, so the plan's aggregates have the reference's bits: a
+    row of at most 32 terms is summed in column order; a longer row is
+    zero-padded to a multiple of 32 (half the padding in front, the odd one
+    behind), summed in windows of 32, and the window sums are summed the
+    same way.  Elementwise adds only, so a card gives the same bits."""
+
+    def in_order(t):
+        s = torch.zeros_like(t[..., 0])
+        for j in range(t.shape[-1]):
+            s = s + t[..., j]
+        return s
+
+    while v.shape[1] > 32:
+        pad = (-v.shape[1]) % 32
+        v = torch.nn.functional.pad(v, (pad // 2, pad - pad // 2))
+        v = in_order(v.reshape(v.shape[0], -1, 32))
+    return in_order(v)
+
+
+class CellAggregates(NamedTuple):
+    """Per-cell far-field aggregates over a grid's point set (plan time).
+
+    One entry per cell: the point count (data dtype, a kernel operand), the
+    z-sum, the centroid of the cell's points (the cell's geometric centre
+    when it is empty: count and z-sum are 0 there, and a finite centroid
+    keeps the far kernel's weight finite) and the cell's integer grid
+    coordinates.  ``e_max`` is the largest point-to-centroid distance over
+    all cells, ``z_dev_max`` the largest ``|z_j - cell z mean|``, ``z_abs_max``
+    the largest ``|z_j|``: the plan-time inputs of the far-field error model
+    (``engine.plan._choose_farfield_radius``).
+    """
+
+    cent_x: torch.Tensor  # (n_cells,) centroid x (cell centre when empty)
+    cent_y: torch.Tensor  # (n_cells,)
+    count: torch.Tensor   # (n_cells,) point count, data dtype
+    z_sum: torch.Tensor   # (n_cells,) sum of z over the cell's points
+    ix: torch.Tensor      # (n_cells,) int32 cell x index
+    iy: torch.Tensor      # (n_cells,) int32 cell y index
+    e_max: float
+    z_dev_max: float
+    z_abs_max: float
+
+
+def cell_aggregates(grid: UniformGrid) -> CellAggregates:
+    """:class:`CellAggregates` from the padded cell layout, rounded as the
+    reference rounds them: row sums in :func:`xla_row_sum`'s order and the
+    root through ``sqrt_rn``."""
+    nc = grid.n_cells
+    dtype, dev = grid.pt_x.dtype, grid.pt_x.device
+    big = coord_sentinel(dtype, dev)
+    cx_cells = grid.cell_x[:nc]  # (nc, cap), pad slots hold the sentinel
+    cy_cells = grid.cell_y[:nc]
+    z_cells = grid.cell_z[:nc]   # pad slots hold 0
+    mask = cx_cells < big / 2
+    cnt = grid.counts.reshape(-1).to(dtype)
+    denom = torch.clamp(cnt, min=1.0)
+    sum_x = xla_row_sum(torch.where(mask, cx_cells, 0.0))
+    sum_y = xla_row_sum(torch.where(mask, cy_cells, 0.0))
+    cid = torch.arange(nc, dtype=torch.int32, device=dev)
+    ix = cid % grid.gx
+    iy = torch.div(cid, grid.gx, rounding_mode="floor")
+    o, s = grid.origin.to(dtype), grid.cell_size.to(dtype)
+    centre_x = o[0] + (ix.to(dtype) + 0.5) * s[0]
+    centre_y = o[1] + (iy.to(dtype) + 0.5) * s[1]
+    cent_x = torch.where(cnt > 0, sum_x / denom, centre_x)
+    cent_y = torch.where(cnt > 0, sum_y / denom, centre_y)
+    z_sum = xla_row_sum(z_cells)
+    ddx = cx_cells - cent_x[:, None]
+    ddy = cy_cells - cent_y[:, None]
+    dev2 = torch.where(mask, ddx * ddx + ddy * ddy, 0.0)
+    e_max = float(sqrt_rn(dev2.max()))
+    z_mean = z_sum / denom
+    z_dev_max = float(torch.where(mask, (z_cells - z_mean[:, None]).abs(), 0.0).max())
+    z_abs_max = float(torch.where(mask, z_cells.abs(), 0.0).max())
+    return CellAggregates(cent_x, cent_y, cnt, z_sum, ix, iy, e_max, z_dev_max, z_abs_max)

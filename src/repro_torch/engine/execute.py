@@ -1,13 +1,18 @@
 """Execute: interpolate one query batch against a plan.  Counterpart of
-the ``tiled`` and exact ``grid`` branches of ``repro.engine.execute``.
+the ``tiled`` and ``grid`` (``phase2="exact"`` and ``"farfield"``) branches of
+``repro.engine.execute``.
 
 The grid path: Morton-sort the queries, split blocks at Morton seams,
 per-query safe radii from the plan's ``required_radius`` table, the
 static-capacity CSR candidate gather, Phase 1 over the candidate rows
 (``csrc/knn.cu``), the per-query overflow blend with the exact ring search,
-exact Phase 2 over all data (``csrc/weight.cu``), unsort.  Exactness is per
-block: the kernel's alpha is kept where a block's candidates fit the plan's
-capacity, and queries of overflowing blocks take the ring search's alpha.
+then Phase 2 and unsort.  Exactness is per block: the kernel's alpha is kept
+where a block's candidates fit the plan's capacity, and queries of
+overflowing blocks take the ring search's alpha.  Phase 2 is the exact sweep
+over all data (``csrc/weight.cu``) or, on a far-field plan, the near field
+swept exactly (``csrc/near.cu``) plus one aggregate term per far cell
+(``csrc/far.cu``), with blocks whose near field overflows the plan's
+capacity swept exactly instead.
 """
 
 from __future__ import annotations
@@ -35,6 +40,8 @@ from repro_torch.kernels.aidw_grid import (
     block_rectangles,
     gather_candidates_csr,
     phase1_alpha_from_candidates,
+    phase2_far_aggregates,
+    phase2_near_weights,
     phase2_weights_full,
 )
 from repro_torch.kernels.aidw_tiled import aidw_tiled_soa
@@ -93,10 +100,70 @@ def _grid_layout(plan: InterpolationPlan, qx, qy):
     over_b = need > plan.cand_capacity
     over_v = over_b.repeat_interleave(plan.block_q)
     return types.SimpleNamespace(
-        order=order, qx_s=qx_s, qy_s=qy_s, qx_v=qx_v, qy_v=qy_v, src=src, dest=dest,
+        order=order, qx_s=qx_s, qy_s=qy_s, qx_v=qx_v, qy_v=qy_v, cx_v=cx_v, cy_v=cy_v, src=src, dest=dest,
         cand_x=cand_x, cand_y=cand_y, need=need,
         num_tiles=_tile_table(need, plan.cand_capacity, plan.cand_block_d),
         over_b=over_b, over_q=over_v if dest is None else over_v[dest])
+
+
+def _phase2_farfield(plan: InterpolationPlan, qx_v, qy_v, alpha_v, cx_v, cy_v):
+    """Far-field Phase 2 over the blocked view (DESIGN.md section 7).
+
+    Per block, the near rectangle is the home-cell bbox grown by the plan's
+    near-field radius; its points are swept exactly (the with-z CSR gather at
+    ``p2_capacity``, walked through the tile table), and every cell outside
+    it adds one aggregate term.  Returns ``(z (n_tot,), need (nb,),
+    rect_cells (nb,))``; ``need > p2_capacity`` flags blocks whose near
+    gather was cut short, which the caller sweeps exactly instead (the bound
+    assumes a complete near field).
+    """
+    near = _near_field(plan, cx_v, cy_v)
+    ah = alpha_v * 0.5
+    sw_n, swz_n, md_n, hz_n = phase2_near_weights(qx_v, qy_v, ah, near.cand_x, near.cand_y, near.cand_z,
+                                                  near.num_tiles, block_q=plan.block_q, tile_d=plan.p2_block_d)
+    sw_f, swz_f = phase2_far_aggregates(qx_v, qy_v, ah, near.rects, plan.far, block_q=plan.block_q,
+                                        tile_d=plan.p2_far_block_d)
+    z = torch.where(md_n <= plan.params.exact_hit_eps, hz_n, (swz_n + swz_f) / (sw_n + sw_f))
+    return z, near.need, near.rect_cells
+
+
+def _near_field(plan: InterpolationPlan, cx_v, cy_v):
+    """The far-field Phase 2's inputs for the blocked view: each block's
+    near rectangle (``rects (nb, 4)`` int32, inclusive ``xlo, xhi, ylo,
+    yhi``), the with-z near gather at ``p2_capacity`` with its true ``need``,
+    the near tile table and the rectangle's cell count."""
+    r_near = torch.full(cx_v.shape, plan.farfield_radius, dtype=cx_v.dtype, device=cx_v.device)
+    xlo, xhi, ylo, yhi = block_rectangles(plan.grid, cx_v, cy_v, r_near, plan.block_q)
+    cand_x, cand_y, cand_z, need = gather_candidates_csr(plan.grid, xlo, xhi, ylo, yhi, plan.p2_capacity,
+                                                         with_z=True)
+    if plan.pipeline == "prefetch":
+        num_tiles = _tile_table(need, plan.p2_capacity, plan.p2_block_d)
+    else:
+        num_tiles = torch.full(need.shape, plan.p2_capacity // plan.p2_block_d, dtype=torch.int32,
+                               device=need.device)
+    return types.SimpleNamespace(
+        rects=torch.stack([xlo, xhi, ylo, yhi], dim=1).to(torch.int32), cand_x=cand_x, cand_y=cand_y,
+        cand_z=cand_z, need=need, num_tiles=num_tiles, rect_cells=(xhi - xlo + 1) * (yhi - ylo + 1))
+
+
+def _phase2_exact_masked(plan: InterpolationPlan, qx_s, qy_s, alpha, over_q):
+    """The masked exact Phase 2, the far-field plan's overflow arm: every
+    ``block_q`` run (sorted layout) holding a flagged query gets the full
+    sweep over all data, and the other blocks cost nothing.  The flagged
+    blocks' queries are gathered into one batch and swept by one launch;
+    the sweep runs one thread per query over the data in a fixed order, so
+    each query gets the bits of a whole-batch sweep.  Unswept slots hold 0;
+    callers blend with ``torch.where(over_q, ...)``."""
+    bq = plan.block_q
+    z = torch.zeros_like(qx_s)
+    blocks = torch.nonzero(over_q.reshape(-1, bq).any(dim=1)).reshape(-1)
+    if blocks.numel() == 0:
+        return z
+    idx = (blocks[:, None] * bq + torch.arange(bq, device=blocks.device)).reshape(-1)
+    dxp, dyp, dzp = plan.data
+    z[idx] = phase2_weights_full(qx_s[idx], qy_s[idx], alpha[idx], dxp, dyp, dzp,
+                                 eps=plan.params.exact_hit_eps, block_d=plan.block_d)
+    return z
 
 
 def _execute_grid(plan: InterpolationPlan, qx, qy):
@@ -120,9 +187,20 @@ def _execute_grid(plan: InterpolationPlan, qx, qy):
     alpha_exact = adaptive_alpha(r_obs, plan.m, plan.area, params).to(qx.dtype)
     alpha = torch.where(over_q, alpha_exact, alpha_fast)
 
-    dxp, dyp, dzp = plan.data
-    zhat = phase2_weights_full(lay.qx_s, lay.qy_s, alpha, dxp, dyp, dzp,
-                               eps=params.exact_hit_eps, block_d=plan.block_d)
+    if plan.phase2 == "farfield":
+        # in the seam-split view (its rectangles must not straddle seams
+        # either): alpha maps in through src, z back through dest; queries
+        # of blocks whose near field overflows take the masked exact sweep
+        alpha_v = alpha if lay.src is None else alpha[lay.src]
+        z_v, need2, rect_cells = _phase2_farfield(plan, lay.qx_v, lay.qy_v, alpha_v, lay.cx_v, lay.cy_v)
+        over2_v = (need2 > plan.p2_capacity).repeat_interleave(plan.block_q)
+        z_near, over2_s = (z_v, over2_v) if lay.dest is None else (z_v[lay.dest], over2_v[lay.dest])
+        z_full = _phase2_exact_masked(plan, lay.qx_s, lay.qy_s, alpha, over2_s)
+        zhat = torch.where(over2_s, z_full, z_near)
+    else:
+        dxp, dyp, dzp = plan.data
+        zhat = phase2_weights_full(lay.qx_s, lay.qy_s, alpha, dxp, dyp, dzp,
+                                   eps=params.exact_hit_eps, block_d=plan.block_d)
     inv = torch.empty_like(lay.order)
     inv[lay.order] = torch.arange(n, device=inv.device)
 
@@ -147,6 +225,15 @@ def _execute_grid(plan: InterpolationPlan, qx, qy):
         "skipped_tile_fraction": 1.0 - torch.where(real_b, lay.num_tiles, 0).sum().to(torch.float32)
         / n_real_tiles,
     }
+    if plan.phase2 == "farfield":
+        n_real_b = real_b.sum().clamp(min=1).to(torch.float32)
+        stats.update({
+            "near_points_mean": torch.where(real_b, need2, 0).sum().to(torch.float32) / n_real_b,
+            "far_cells_mean": torch.where(real_b, grid.n_cells - rect_cells, 0).sum().to(torch.float32)
+            / n_real_b,
+            "p2_overflow_queries": over2_s[:n].sum(),
+            "farfield_rtol_bound": torch.tensor(plan.farfield_bound, dtype=zhat.dtype, device=zhat.device),
+        })
     return zhat[:n][inv], alpha[:n][inv], stats
 
 
@@ -227,6 +314,11 @@ def execute_with_stats(plan: InterpolationPlan, qx, qy):
     overflowed) and ``persistent_overflow`` (overflow persisted for
     ``PERSISTENT_OVERFLOW_BATCHES`` consecutive batches against this plan;
     a :class:`CapacityOverflowWarning` fires when the streak is reached).
+    A far-field plan adds ``near_points_mean`` (near candidates per block),
+    ``far_cells_mean`` (far cells per block), ``p2_overflow_queries``
+    (queries whose block's near field overflowed ``p2_capacity`` and took the
+    exact sweep) and ``farfield_rtol_bound`` (the plan's proved bound), each
+    counted over blocks holding a real query.
     This entry syncs with the device to read ``overflow_queries``.
     """
     z, a, stats = _execute(plan, qx, qy)

@@ -1,13 +1,16 @@
 """Plan construction: every shape and occupancy decision, made once per
-data set.  Counterpart of the ``tiled`` and ``grid`` (``phase2="exact"``)
-branches of ``repro.engine.plan``.
+data set.  Counterpart of the ``tiled`` and ``grid`` (``phase2="exact"`` and
+``"farfield"``) branches of ``repro.engine.plan``.
 
 A plan holds the sentinel-padded data rows and, for ``impl="grid"``, the
 grid snapshot (:class:`UniformGrid` with its CSR arrays), the per-cell
 ``required_radius`` table, and a static candidate capacity chosen from the
 occupancy histogram, with its tile width, the Morton seam-split depth and
-the rebuild on a pathological resolution.  Its tensors live on one device
-(``"cuda"`` unless the caller asks for another), where ``execute`` runs.
+the rebuild on a pathological resolution.  A ``phase2="farfield"`` plan adds
+the near-field radius chosen by the worst-case error model with its proved
+bound, the near-field capacity and tiles, and the padded cell aggregates.
+Its tensors live on one device (``"cuda"`` unless the caller asks for
+another), where ``execute`` runs.
 """
 
 from __future__ import annotations
@@ -23,24 +26,34 @@ from repro_torch.core.grid import (
     DEFAULT_OCCUPANCY,
     UniformGrid,
     build_grid,
+    cell_aggregates,
     grid_from_csr,
     required_radius_table,
     static_cell_radius,
 )
 from repro_torch.core.layouts import coord_sentinel, pad_to
-from repro_torch.errors import PathologicalGridWarning
+from repro_torch.errors import PathologicalGridWarning, UnprovableRtolWarning
 
 # impls of the JAX package that this port does not run yet -> ROADMAP item
 _NOT_PORTED = {
     "naive": "A8", "binned": "A8", "fused": "A8", "tiled_v2": "A8", "idw": "A8", "chunked": "A8",
 }
-_PHASE2_NOT_PORTED = {"farfield": "A6", "quadtree": "A7"}
+_PHASE2_NOT_PORTED = {"quadtree": "A7"}
 
 # A resolution is pathological when some cell needs a safe ring radius
 # beyond this (candidate rows then approach a full sweep); a well-sized grid
 # sits at 2-3.
 _MAX_SAFE_RADIUS = 6
 _MAX_REBUILDS = 3
+
+# Far-field fallback: when the requested rtol is unprovable at any
+# profitable radius, take the cheapest radius proving at least this bound.
+_FALLBACK_BOUND_CEIL = 0.5
+
+# Per-tile element budget of the Phase-2 near/far sweeps, kept from the JAX
+# package (a ~1 MiB (block_q, tile) float32 tile in a TPU core's VMEM) so the
+# plan's tiles equal the reference plan's; not re-derived for this card.
+_P2_TILE_ELEMS = 64 * 4096
 
 
 def _round_up(x: int, mult: int) -> int:
@@ -67,9 +80,17 @@ class InterpolationPlan:
     grid_rebuilds: int        # grid: coarsening rebuilds during planning
     seam_level: int           # grid: Morton quadrant split depth (0 = off)
     pipeline: str             # grid Phase 1: "prefetch" (tile table) | "dense"
+    phase2: str               # grid Phase 2: "exact" (full sweep) | "farfield"
+    farfield_rtol: float      # farfield: requested relative error
+    farfield_radius: int      # farfield: near-field radius (cells)
+    farfield_bound: float     # farfield: proved worst-case relative error
+    p2_capacity: int          # farfield: static near-field row width (points)
+    p2_block_d: int           # farfield: near-field sweep tile
+    p2_far_block_d: int       # farfield: cell-aggregate sweep tile
     data: tuple
     grid: UniformGrid | None
     r_need: torch.Tensor | None  # (gy, gx) int32 per-cell required_radius
+    far: tuple                # farfield: padded (ncp,) cent_x, cent_y, count, z_sum, ix, iy
 
     @property
     def device(self) -> torch.device:
@@ -114,6 +135,122 @@ def _densest_window_count(grid: UniformGrid, window: int) -> int:
     return max(int(sums.max()), 1)
 
 
+def _farfield_bound_model(radius: int, cell_min: float, a_max: float, e_max: float, z_dev_max: float,
+                          z_abs_max: float):
+    """Worst-case relative error of the far-field Phase 2 at a near-field
+    radius (DESIGN.md section 7): every far cell's points lie at distance
+    ``>= radius * cell_min`` from the query and within ``e_max`` of their
+    centroid, so ``tau = e_max / (radius * cell_min)`` bounds each far
+    cell's dispersion ratio; ``inf`` where nothing is provable."""
+    if radius <= 0:
+        return math.inf
+    tau = e_max / (radius * cell_min) if cell_min > 0 else math.inf
+    g = z_dev_max / z_abs_max if z_abs_max > 0 else 0.0
+    return _bound_from_tau(tau, a_max, g)
+
+
+def _bound_from_tau(tau: float, a_max: float, g: float = 0.0, dipole: bool = False):
+    """The (tau, alpha) -> worst-case relative error core of the far-field
+    models.  ``dipole=False``: the single-level budget, a second-order count
+    term plus the first-order ``eta * g`` z-spread term (``g = z_dev_max /
+    z_abs_max``); ``dipole=True``: the quadtree budget, both terms
+    second-order.  Non-increasing as tau shrinks; ``inf`` where no guarantee
+    exists."""
+    if tau >= 1.0:
+        return math.inf
+    grow = (1.0 + tau) ** a_max
+    eps2 = 0.5 * a_max * (a_max + 1.0) * tau * tau * (1.0 - tau) ** (-a_max - 2.0)
+    eps2h = eps2 * grow
+    if eps2h >= 1.0:
+        return math.inf
+    if dipole:
+        return 2.0 * eps2 * grow / (1.0 - eps2h)
+    eta = (1.0 - tau) ** (-a_max) - 1.0
+    return (2.0 * eps2 + eta * g) * grow / (1.0 - eps2h)
+
+
+def _bound_at_radius(grid: UniformGrid, params: AIDWParams, agg, radius: int):
+    """Proved worst-case bound at a near radius, shared by the auto chooser
+    and the ``farfield_radius=`` override.  A radius ``>= max(gx, gy)``
+    leaves no far cell, so the bound is exactly 0 there."""
+    if radius >= max(grid.gx, grid.gy):
+        return 0.0
+    cell_min = float(torch.minimum(grid.cell_size[0], grid.cell_size[1]))
+    return _farfield_bound_model(radius, cell_min, float(max(params.alpha_levels)), agg.e_max,
+                                 agg.z_dev_max, agg.z_abs_max)
+
+
+def _choose_farfield_radius(grid: UniformGrid, params: AIDWParams, farfield_rtol: float, agg, *,
+                            side: int, m: int):
+    """Near-field radius from the worst-case error model and a cost cap.
+
+    Returns ``(radius, bound)``: the smallest radius whose bound meets
+    ``farfield_rtol``, as long as the modeled Phase-2 work (near window
+    occupancy plus one term per cell) stays under ``m / 4``.  If the target
+    is not provable under that cap, the cheapest radius whose bound is at
+    most ``_FALLBACK_BOUND_CEIL`` (``r_cap`` if none is) is used and an
+    :class:`UnprovableRtolWarning` reports the honest bound.
+    """
+    cover = max(grid.gx, grid.gy)
+    occ_mean = max(m / max(grid.n_cells, 1), 1.0)
+
+    def modeled_cost(radius):
+        window = min(side + 2 * radius + 1, cover)
+        return window * window * occ_mean + grid.n_cells
+
+    def bound_at(radius):
+        return _bound_at_radius(grid, params, agg, radius)
+
+    r_cap = 1
+    while r_cap + 1 < cover and modeled_cost(r_cap + 1) <= m / 4:
+        r_cap += 1
+    for radius in range(1, r_cap + 1):
+        bound = bound_at(radius)
+        if bound <= farfield_rtol:
+            return radius, bound
+    radius = r_cap
+    for r in range(1, r_cap + 1):
+        if bound_at(r) <= _FALLBACK_BOUND_CEIL:
+            radius = r
+            break
+    bound = bound_at(radius)
+    warnings.warn(
+        f"farfield_rtol={farfield_rtol:g} is not provable within the profitable near-field budget "
+        f"(radius <= {r_cap} of a {grid.gx}x{grid.gy} grid); using radius {radius} with worst-case "
+        f"bound {bound:.3g}. Measured error is typically far below the bound — check "
+        "farfield_error_report, or pass farfield_radius= / a coarser grid to trade speed for guarantee.",
+        UnprovableRtolWarning, stacklevel=4)
+    return radius, bound
+
+
+def _plan_farfield(grid: UniformGrid, params: AIDWParams, *, block_q: int, m: int, side: int,
+                   farfield_rtol: float, farfield_radius, min_p2_capacity):
+    """Far-field plan fields: radius and bound, the near-field capacity (the
+    densest-window model with the block's home bbox grown by the radius),
+    the near and far tiles, and the padded cell aggregates: centroids padded
+    with the coordinate sentinel, count and z-sum with 0, ix/iy with -1."""
+    agg = cell_aggregates(grid)
+    if farfield_radius is not None:  # user override: the radius as given
+        radius = max(1, min(int(farfield_radius), max(grid.gx, grid.gy)))
+        bound = _bound_at_radius(grid, params, agg, radius)
+    else:
+        radius, bound = _choose_farfield_radius(grid, params, farfield_rtol, agg, side=side, m=m)
+    window2 = min(side + 2 * radius + 1, max(grid.gx, grid.gy))
+    cap2 = min(_densest_window_count(grid, window2), m)
+    if min_p2_capacity is not None:
+        cap2 = min(max(cap2, int(min_p2_capacity)), m)
+    tile_cap = max(512, _round_up(_P2_TILE_ELEMS // block_q, 128))
+    p2_block_d = min(tile_cap, max(128, _round_up(cap2, 128)))
+    far_bd = min(tile_cap, _round_up(grid.n_cells, 128))
+    big = coord_sentinel(agg.cent_x.dtype, agg.cent_x.device)
+    far = (pad_to(agg.cent_x, far_bd, big), pad_to(agg.cent_y, far_bd, big),
+           pad_to(agg.count, far_bd, 0.0), pad_to(agg.z_sum, far_bd, 0.0),
+           pad_to(agg.ix, far_bd, -1), pad_to(agg.iy, far_bd, -1))
+    return dict(farfield_radius=radius, farfield_bound=float(bound),
+                p2_capacity=_round_up(cap2, p2_block_d), p2_block_d=p2_block_d, p2_far_block_d=far_bd,
+                far=far)
+
+
 def _choose_seam_level(grid: UniformGrid, window: int) -> int:
     """Morton seam-split depth: go as deep as quadrants stay comfortably
     larger than the expected candidate window (at most 4 levels)."""
@@ -130,8 +267,9 @@ def _pad_data(dx, dy, dz, mult: int):
 
 
 def _plan_grid(dx, dy, dz, *, params, block_q, block_d, grid, target_occupancy,
-               query_occupancy, seam_level):
-    """Grid-impl plan fields: snapshot, static capacity, tile widths."""
+               query_occupancy, seam_level, phase2, farfield_rtol, farfield_radius, min_p2_capacity):
+    """Grid-impl plan fields: snapshot, static capacity, tile widths, and
+    for ``phase2="farfield"`` the far-field fields."""
     m = int(dx.shape[0])
     user_grid = grid is not None
     occupancy = target_occupancy or DEFAULT_OCCUPANCY
@@ -141,7 +279,7 @@ def _plan_grid(dx, dy, dz, *, params, block_q, block_d, grid, target_occupancy,
     rebuilds = 0
     while True:
         r_need = required_radius_table(grid, params.k)
-        capacity, r_static, window, _side = _choose_candidate_capacity(
+        capacity, r_static, window, side = _choose_candidate_capacity(
             grid, r_need, block_q, m, query_occupancy)
         if not (grid.n_cells > 1 and r_static > _MAX_SAFE_RADIUS):
             break
@@ -163,10 +301,16 @@ def _plan_grid(dx, dy, dz, *, params, block_q, block_d, grid, target_occupancy,
     if seam_level is None:
         seam_level = _choose_seam_level(grid, window)
     # Phase 2 sweeps all data: sentinel-pad to its own tile multiple
+    # (kept on far-field plans: it is the exact arm of their overflow blend)
     bd2 = min(block_d, max(128, _round_up(m, 128)))
-    return dict(block_d=bd2, cand_capacity=_round_up(capacity, cand_block_d),
-                cand_block_d=cand_block_d, grid_rebuilds=rebuilds, seam_level=int(seam_level),
-                data=_pad_data(dx, dy, dz, bd2), grid=grid, r_need=r_need)
+    fields = dict(block_d=bd2, cand_capacity=_round_up(capacity, cand_block_d),
+                  cand_block_d=cand_block_d, grid_rebuilds=rebuilds, seam_level=int(seam_level),
+                  data=_pad_data(dx, dy, dz, bd2), grid=grid, r_need=r_need)
+    if phase2 == "farfield":
+        fields.update(_plan_farfield(grid, params, block_q=block_q, m=m, side=side,
+                                     farfield_rtol=farfield_rtol, farfield_radius=farfield_radius,
+                                     min_p2_capacity=min_p2_capacity))
+    return fields
 
 
 def _as_data(x, device):
@@ -180,7 +324,8 @@ def build_plan(dx, dy, dz, *, params: AIDWParams = AIDWParams(), area: float | N
                impl: str = "tiled", layout: str = "soa", block_q: int = 256, block_d: int = 512,
                grid: UniformGrid | None = None, target_occupancy: float | None = None,
                query_occupancy: float | None = None, seam_level: int | None = None,
-               pipeline: str = "prefetch", phase2: str = "exact",
+               pipeline: str = "prefetch", phase2: str = "exact", farfield_rtol: float = 1e-3,
+               farfield_radius: int | None = None, min_p2_capacity: int | None = None,
                device=None) -> InterpolationPlan:
     """Build an :class:`InterpolationPlan` from a data set and configuration.
 
@@ -193,6 +338,15 @@ def build_plan(dx, dy, dz, *, params: AIDWParams = AIDWParams(), area: float | N
     exact through the ring-search blend.  ``seam_level`` (grid) is the Morton
     split depth (``None`` auto, 0 off).  ``pipeline`` (grid) is "prefetch"
     (per-block tile table) or "dense" (every tile; the same bits).
+    ``phase2`` (grid) is "exact" (the full m-point sweep) or "farfield"
+    (exact weights only inside a near-field radius, one aggregate term per
+    far cell beyond it; its proved worst-case relative error, against
+    ``max|z_data|``, is ``plan.farfield_bound``).  ``farfield_rtol`` is the
+    requested error; when it is not provable at a profitable radius the plan
+    warns (:class:`UnprovableRtolWarning`) and reports the honest, larger
+    bound.  ``farfield_radius`` overrides the radius choice (the bound is
+    computed for it, possibly ``inf``).  ``min_p2_capacity`` floors the
+    near-field capacity, clamped to ``m``.
     ``device`` defaults to ``"cuda"`` and fails, as torch does, without a card.
 
     Data must be finite (``ValueError`` otherwise); non-finite queries are
@@ -213,11 +367,17 @@ def build_plan(dx, dy, dz, *, params: AIDWParams = AIDWParams(), area: float | N
         raise ValueError(f"pipeline must be 'prefetch' or 'dense', got {pipeline!r}")
     if seam_level is not None and not (0 <= int(seam_level) <= 8):
         raise ValueError(f"seam_level must be in [0, 8], got {seam_level!r}")
-    if phase2 not in ("exact", *_PHASE2_NOT_PORTED):
+    if phase2 not in ("exact", "farfield", *_PHASE2_NOT_PORTED):
         raise ValueError(f"phase2 must be 'exact', 'farfield' or 'quadtree', got {phase2!r}")
-    if phase2 != "exact":
-        if impl != "grid":
-            raise ValueError(f"phase2={phase2!r} requires impl='grid'")
+    if phase2 != "exact" and impl != "grid":
+        raise ValueError(f"phase2={phase2!r} requires impl='grid' (the cell aggregates live on the grid)")
+    if not float(farfield_rtol) > 0.0:
+        raise ValueError(f"farfield_rtol must be > 0, got {farfield_rtol!r}")
+    if farfield_radius is not None and int(farfield_radius) < 1:
+        raise ValueError(f"farfield_radius must be >= 1, got {farfield_radius!r}")
+    if min_p2_capacity is not None and int(min_p2_capacity) < 1:
+        raise ValueError(f"min_p2_capacity must be >= 1, got {min_p2_capacity!r}")
+    if phase2 in _PHASE2_NOT_PORTED:
         raise NotImplementedError(
             f"phase2={phase2!r} is not ported yet (ROADMAP item {_PHASE2_NOT_PORTED[phase2]})")
 
@@ -243,14 +403,22 @@ def build_plan(dx, dy, dz, *, params: AIDWParams = AIDWParams(), area: float | N
     params = dataclasses.replace(params, alpha_levels=tuple(params.alpha_levels))
     fields = dict(impl=impl, params=params, area=float(area), m=m, block_q=block_q,
                   block_d=block_d, cand_capacity=0, cand_block_d=0, grid_rebuilds=0,
-                  seam_level=0, pipeline=pipeline, grid=None, r_need=None)
+                  seam_level=0, pipeline=pipeline, phase2=phase2, farfield_rtol=float(farfield_rtol),
+                  farfield_radius=0, farfield_bound=0.0, p2_capacity=0, p2_block_d=0, p2_far_block_d=0,
+                  grid=None, r_need=None, far=())
     if impl == "grid":
         fields.update(_plan_grid(dx, dy, dz, params=params, block_q=block_q, block_d=block_d,
                                  grid=grid, target_occupancy=target_occupancy,
-                                 query_occupancy=query_occupancy, seam_level=seam_level))
+                                 query_occupancy=query_occupancy, seam_level=seam_level,
+                                 phase2=phase2, farfield_rtol=float(farfield_rtol),
+                                 farfield_radius=farfield_radius, min_p2_capacity=min_p2_capacity))
     else:
         fields.update(data=_pad_data(dx, dy, dz, block_d))
     return InterpolationPlan(**fields)
+
+
+# the far-field plan's padded cell-aggregate arrays, in the order of ``plan.far``
+FAR_ARRAYS = ("cent_x", "cent_y", "count", "z_sum", "ix", "iy")
 
 
 def plan_from_reference(statics: dict, arrays: dict, device=None) -> InterpolationPlan:
@@ -259,11 +427,16 @@ def plan_from_reference(statics: dict, arrays: dict, device=None) -> Interpolati
 
     ``arrays`` (numpy): the padded data rows ``dx, dy, dz`` and, for a grid
     plan, ``origin, cell_size, counts, cum, starts, pt_x, pt_y, pt_z`` and
-    ``r_need``.  ``statics``: ``impl`` ("grid" or "tiled"), ``m``, ``area``,
-    ``params`` (an :class:`AIDWParams` or a dict of its fields), ``block_q``,
+    ``r_need``; for a far-field plan also the padded cell aggregates
+    ``far_cent_x, far_cent_y, far_count, far_z_sum, far_ix, far_iy``.
+    ``statics``: ``impl`` ("grid" or "tiled"), ``m``, ``area``, ``params``
+    (an :class:`AIDWParams` or a dict of its fields), ``block_q``,
     ``block_d`` and, for a grid plan, ``cand_capacity``, ``cand_block_d``,
-    ``seam_level``, ``pipeline`` and optionally ``grid_rebuilds``.  The padded
-    layout of the grid is rebuilt from the CSR arrays.
+    ``seam_level``, ``pipeline`` and optionally ``grid_rebuilds``; for a
+    far-field plan ``phase2="farfield"``, ``farfield_rtol``,
+    ``farfield_radius``, ``farfield_bound``, ``p2_capacity``, ``p2_block_d``
+    and ``p2_far_block_d``.  The padded layout of the grid is rebuilt from the
+    CSR arrays.
     """
     device = torch.device("cuda" if device is None else device)
 
@@ -277,7 +450,13 @@ def plan_from_reference(statics: dict, arrays: dict, device=None) -> Interpolati
     impl = statics.get("impl", "grid")
     if impl not in ("grid", "tiled"):
         raise NotImplementedError(f"impl={impl!r} is not ported yet")
+    phase2 = statics.get("phase2", "exact")
+    if phase2 in _PHASE2_NOT_PORTED:
+        raise NotImplementedError(f"phase2={phase2!r} is not ported yet")
     grid = r_need = None
+    far = ()
+    if phase2 == "farfield":
+        far = tuple(t(f"far_{n}").reshape(-1) for n in FAR_ARRAYS)
     if impl == "grid":
         counts = t("counts").to(torch.int32)
         gy, gx = counts.shape
@@ -292,4 +471,9 @@ def plan_from_reference(statics: dict, arrays: dict, device=None) -> Interpolati
         cand_block_d=int(statics.get("cand_block_d", 0)),
         grid_rebuilds=int(statics.get("grid_rebuilds", 0)),
         seam_level=int(statics.get("seam_level", 0)), pipeline=statics.get("pipeline", "prefetch"),
-        data=tuple(t(n).reshape(-1) for n in ("dx", "dy", "dz")), grid=grid, r_need=r_need)
+        phase2=phase2, farfield_rtol=float(statics.get("farfield_rtol", 1e-3)),
+        farfield_radius=int(statics.get("farfield_radius", 0)),
+        farfield_bound=float(statics.get("farfield_bound", 0.0)),
+        p2_capacity=int(statics.get("p2_capacity", 0)), p2_block_d=int(statics.get("p2_block_d", 0)),
+        p2_far_block_d=int(statics.get("p2_far_block_d", 0)),
+        data=tuple(t(n).reshape(-1) for n in ("dx", "dy", "dz")), grid=grid, r_need=r_need, far=far)

@@ -13,6 +13,11 @@ class ReproWarning(Warning):
     """Base class for every warning the port emits on purpose."""
 
 
+class UnprovableRtolWarning(ReproWarning, UserWarning):
+    """The requested ``farfield_rtol`` is not provable at a profitable
+    near-field radius; the plan ships the honest (larger) worst-case bound."""
+
+
 class PathologicalGridWarning(ReproWarning, UserWarning):
     """The grid resolution is pathological for the data: some cell's safe
     ring radius is so large that candidate rows approach a full sweep."""

@@ -1,5 +1,6 @@
 """Grid-path kernel plumbing over a plan's CSR grid snapshot.  Counterpart
-of the exact-path part of ``repro.kernels.aidw_grid``.
+of the exact-path and single-level far-field parts of
+``repro.kernels.aidw_grid``.
 
 * :func:`block_rectangles` - each query block's candidate rectangle (cell
   coords): the bbox of its home cells grown by the block's max safe radius.
@@ -8,22 +9,40 @@ of the exact-path part of ``repro.kernels.aidw_grid``.
   into a static ``capacity``-wide row (sentinel-padded) by a batched
   ``searchsorted`` over the per-row prefix sums.  Also returns each block's
   true need, so the engine can route overflowing blocks to the exact ring
-  search.
+  search; ``with_z=True`` also gathers the z row (the far-field near field).
 * :func:`phase1_alpha_from_candidates` - Phase 1 over the candidate rows:
   ``csrc/knn.cu`` with the per-block tile table (the port of
   ``_knn_kernel_skip``, pipeline "prefetch") or without it (the dense walk
   of ``_knn_kernel_soa``, pipeline "dense").
 * :func:`phase2_weights_full` - exact Phase 2, ``csrc/weight.cu`` over all
   data points (the port of ``_weight_kernel_soa``).
+* :func:`phase2_near_weights` - the far-field plan's near field,
+  ``csrc/near.cu`` (the port of ``_near_weight_kernel``): the exact weight
+  sums over each block's near candidate row, walked through its tile table,
+  returned raw.
+* :func:`phase2_far_aggregates` - the far field, ``csrc/far.cu`` (the port of
+  ``_far_cell_kernel``): one aggregate term per cell outside the block's near
+  rectangle.
+
+Each kernel wrapper runs its plain version (beside it, tile by tile as the
+Pallas kernel sums) when given CPU tensors, and launches its kernel or
+raises when given CUDA tensors.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-from repro_torch.core.aidw import AIDWParams
+from repro_torch.core.aidw import AIDWParams, tiny_for
 from repro_torch.core.grid import UniformGrid
-from repro_torch.kernels.aidw_tiled import knn_alpha, weight_sweep
+from repro_torch.kernels import _build
+from repro_torch.kernels._common import SUM_RUN, pow_weight, run_sum, sq_dist_tile, weight_tile
+from repro_torch.kernels.aidw_tiled import _check_float, _on_card, _suffix, knn_alpha, weight_sweep
+
+_NEAR_THREADS = 256
+_FAR_THREADS = 256
 
 
 def block_rectangles(grid: UniformGrid, cx, cy, r_safe, block_q: int):
@@ -40,13 +59,15 @@ def block_rectangles(grid: UniformGrid, cx, cy, r_safe, block_q: int):
     return xlo, xhi, ylo, yhi
 
 
-def gather_candidates_csr(grid: UniformGrid, xlo, xhi, ylo, yhi, capacity: int):
+def gather_candidates_csr(grid: UniformGrid, xlo, xhi, ylo, yhi, capacity: int, with_z: bool = False):
     """Per-block candidate rows of static width from the CSR snapshot.
 
     Returns ``(cand_x, cand_y, need)``: candidates ``(nb, capacity)`` and the
     true per-block candidate count ``need (nb,)``.  Slots past a block's count,
     and every slot past ``capacity`` when it overflows, read the CSR sentinel
     slot (index ``m``).  ``need > capacity`` means the row is incomplete.
+    ``with_z=True`` also gathers the z rows (sentinel slots get z = 0,
+    weightless) and returns ``(cand_x, cand_y, cand_z, need)``.
     """
     nb = xlo.shape[0]
     gx, gy = grid.gx, grid.gy
@@ -72,6 +93,8 @@ def gather_candidates_csr(grid: UniformGrid, xlo, xhi, ylo, yhi, capacity: int):
     m = grid.n_points
     valid = s < need.clamp(max=capacity)[:, None]
     idx = torch.where(valid, idx.clamp(0, m - 1), m)  # m = sentinel slot
+    if with_z:
+        return grid.pt_x[idx], grid.pt_y[idx], grid.pt_z[idx], need
     return grid.pt_x[idx], grid.pt_y[idx], need
 
 
@@ -92,3 +115,126 @@ def phase2_weights_full(qx_s, qy_s, alpha, dxp, dyp, dzp, *, eps: float, block_d
     """Exact Phase 2 over all (sentinel-padded, ``block_d``-multiple) data
     points; returns z ``(n_tot,)``."""
     return weight_sweep(qx_s, qy_s, alpha * 0.5, dxp, dyp, dzp, tile_d=block_d, eps=eps)
+
+
+def _check_blocks(name: str, n: int, block_q: int, rows: int) -> None:
+    if block_q <= 0 or n % block_q or rows * block_q != n:
+        raise ValueError(f"{name}: {n} queries do not make {rows} blocks of {block_q}")
+
+
+def phase2_near_weights_plain(qx, qy, alpha_half, cand_x, cand_y, cand_z, num_tiles, *, block_q: int,
+                              tile_d: int):
+    """Plain version of :func:`phase2_near_weights`: ``weight_tile`` tile by
+    tile, each tile summed in the kernel's order (``run_sum``) and folded
+    into the running sums, a row left untouched past its tile count."""
+    n = qx.shape[0]
+    nb, c_tot = cand_x.shape
+    zeros = torch.zeros((n, 1), dtype=qx.dtype, device=qx.device)
+    sum_w, sum_wz, hit_z = zeros, zeros, zeros
+    min_d2 = torch.full((n, 1), math.inf, dtype=qx.dtype, device=qx.device)
+    qx3, qy3 = qx.reshape(nb, block_q, 1), qy.reshape(nb, block_q, 1)
+    ah2 = alpha_half[:, None]
+    steps = min(c_tot // tile_d, int(num_tiles.max()) if nb else 0)
+    for j in range(steps):
+        s = slice(j * tile_d, (j + 1) * tile_d)
+        d2 = sq_dist_tile(qx3, qy3, cand_x[:, None, s], cand_y[:, None, s]).reshape(n, tile_d)
+        dz = cand_z[:, None, s].expand(nb, block_q, tile_d).reshape(n, tile_d)
+        sw, swz, tmin, thz = weight_tile(d2, dz, ah2, in_runs=True)
+        live = (j < num_tiles).repeat_interleave(block_q)[:, None]
+        sum_w = torch.where(live, sum_w + sw, sum_w)
+        sum_wz = torch.where(live, sum_wz + swz, sum_wz)
+        better = live & (tmin < min_d2)
+        hit_z = torch.where(better, thz, hit_z)
+        min_d2 = torch.where(better, tmin, min_d2)
+    return sum_w[:, 0], sum_wz[:, 0], min_d2[:, 0], hit_z[:, 0]
+
+
+def phase2_near_weights(qx, qy, alpha_half, cand_x, cand_y, cand_z, num_tiles, *, block_q: int,
+                        tile_d: int):
+    """Exact near-field weight sweep over per-block candidate rows.
+
+    ``qx, qy, alpha_half (n,)`` with ``n = nb * block_q``; ``cand_x, cand_y,
+    cand_z (nb, c)`` the near-rectangle candidates, ``c % tile_d == 0`` and
+    ``tile_d % SUM_RUN == 0``;
+    ``num_tiles (nb,)`` int32, row i walks its first ``num_tiles[i]`` tiles
+    (the full tile count is a dense walk, the same bits: the skipped tiles
+    are all sentinel).  Returns the raw ``(sum_w, sum_wz, min_d2, hit_z)``,
+    ``(n,)`` each.
+    """
+    n = qx.shape[0]
+    nb, c_tot = cand_x.shape
+    _check_blocks("phase2_near_weights", n, block_q, nb)
+    if (tile_d <= 0 or tile_d % SUM_RUN or c_tot % tile_d or not (cand_y.shape == cand_z.shape == cand_x.shape)
+            or not (qy.shape == alpha_half.shape == qx.shape) or num_tiles.shape != (nb,)):
+        raise ValueError(f"phase2_near_weights: bad shapes q={tuple(qx.shape)} cand={tuple(cand_x.shape)} "
+                         f"num_tiles={tuple(num_tiles.shape)} tile_d={tile_d}")
+    if not _on_card("phase2_near_weights", qx, qy, alpha_half, cand_x, cand_y, cand_z, num_tiles):
+        return phase2_near_weights_plain(qx, qy, alpha_half, cand_x, cand_y, cand_z, num_tiles,
+                                         block_q=block_q, tile_d=tile_d)
+    _check_float("phase2_near_weights", qx, qy, alpha_half, cand_x, cand_y, cand_z)
+    if num_tiles.dtype != torch.int32 or not num_tiles.is_contiguous():
+        raise ValueError("phase2_near_weights: num_tiles must be a contiguous int32 tensor")
+    out = [torch.empty_like(qx) for _ in range(4)]
+    fn = _build.entry(f"aidw_near_weight_{_suffix(qx.dtype)}")
+    err = fn(qx.data_ptr(), qy.data_ptr(), alpha_half.data_ptr(), cand_x.data_ptr(), cand_y.data_ptr(),
+             cand_z.data_ptr(), num_tiles.data_ptr(), n, block_q, c_tot, tile_d,
+             math.gcd(block_q, _NEAR_THREADS), tiny_for(qx.dtype), *(o.data_ptr() for o in out),
+             torch.cuda.current_stream(qx.device).cuda_stream)
+    _build.check(err, "phase2_near_weights launch")
+    _build.LAUNCHES["near_weight"] += 1
+    return tuple(out)
+
+
+def phase2_far_aggregates_plain(qx, qy, alpha_half, rects, far, *, block_q: int, tile_d: int):
+    """Plain version of :func:`phase2_far_aggregates`, tile by tile, each
+    tile summed in the kernel's order (``run_sum``)."""
+    fx, fy, fcnt, fzs, fix, fiy = far
+    n = qx.shape[0]
+    zeros = torch.zeros((n,), dtype=qx.dtype, device=qx.device)
+    sum_w, sum_wz = zeros, zeros
+    rq = rects.long().repeat_interleave(block_q, dim=0)
+    xlo, xhi, ylo, yhi = (rq[:, i:i + 1] for i in range(4))
+    qx2, qy2, ah2 = qx[:, None], qy[:, None], alpha_half[:, None]
+    for j in range(fx.shape[0] // tile_d):
+        s = slice(j * tile_d, (j + 1) * tile_d)
+        w = pow_weight(sq_dist_tile(qx2, qy2, fx[None, s], fy[None, s]), ah2)
+        ix, iy = fix[None, s], fiy[None, s]
+        inside = (ix >= xlo) & (ix <= xhi) & (iy >= ylo) & (iy <= yhi)
+        w = torch.where(inside, 0.0, w)
+        sum_w = sum_w + run_sum(w * fcnt[None, s])[:, 0]
+        sum_wz = sum_wz + run_sum(w * fzs[None, s])[:, 0]
+    return sum_w, sum_wz
+
+
+def phase2_far_aggregates(qx, qy, alpha_half, rects, far, *, block_q: int, tile_d: int):
+    """Far-field aggregate sweep: every cell of the grid, one term each.
+
+    ``rects (nb, 4)`` int32: each block's near rectangle (inclusive cell
+    bounds ``xlo, xhi, ylo, yhi``), masked out of the far sum; ``far`` the
+    plan's padded ``(ncp,)`` arrays ``(cent_x, cent_y, count, z_sum, ix,
+    iy)``, ``ncp % tile_d == 0``, ``tile_d % SUM_RUN == 0``.  Returns ``(sum_w, sum_wz)``, ``(n,)`` each.
+    """
+    n = qx.shape[0]
+    nb = rects.shape[0]
+    _check_blocks("phase2_far_aggregates", n, block_q, nb)
+    fx, fy, fcnt, fzs, fix, fiy = far
+    ncp = fx.shape[0]
+    if (tile_d <= 0 or tile_d % SUM_RUN or ncp % tile_d or rects.shape != (nb, 4)
+            or any(a.shape != (ncp,) for a in far) or not (qy.shape == alpha_half.shape == qx.shape)):
+        raise ValueError(f"phase2_far_aggregates: bad shapes q={tuple(qx.shape)} rects={tuple(rects.shape)} "
+                         f"far={[tuple(a.shape) for a in far]} tile_d={tile_d}")
+    if not _on_card("phase2_far_aggregates", qx, qy, alpha_half, rects, *far):
+        return phase2_far_aggregates_plain(qx, qy, alpha_half, rects, far, block_q=block_q, tile_d=tile_d)
+    _check_float("phase2_far_aggregates", qx, qy, alpha_half, fx, fy, fcnt, fzs)
+    for name, a in (("rects", rects), ("ix", fix), ("iy", fiy)):
+        if a.dtype != torch.int32 or not a.is_contiguous():
+            raise ValueError(f"phase2_far_aggregates: {name} must be a contiguous int32 tensor")
+    sum_w, sum_wz = torch.empty_like(qx), torch.empty_like(qx)
+    fn = _build.entry(f"aidw_far_cell_{_suffix(qx.dtype)}")
+    err = fn(qx.data_ptr(), qy.data_ptr(), alpha_half.data_ptr(), rects.data_ptr(),
+             *(a.data_ptr() for a in far), n, block_q, ncp, tile_d, math.gcd(block_q, _FAR_THREADS),
+             tiny_for(qx.dtype), sum_w.data_ptr(), sum_wz.data_ptr(),
+             torch.cuda.current_stream(qx.device).cuda_stream)
+    _build.check(err, "phase2_far_aggregates launch")
+    _build.LAUNCHES["far_cell"] += 1
+    return sum_w, sum_wz

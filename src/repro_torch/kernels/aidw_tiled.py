@@ -110,6 +110,9 @@ def knn_alpha(qx, qy, cand_x, cand_y, *, block_q: int, tile_d: int, num_tiles=No
                          f"tile_d={tile_d}")
     if rows != 1 and rows * block_q != n:
         raise ValueError(f"knn_alpha: {rows} candidate rows for {n // block_q} query blocks")
+    # one row is a shared data row, or the row of a batch of one query block
+    if num_tiles is not None and rows * block_q != n:
+        raise ValueError("knn_alpha: a tile table needs one candidate row per query block")
     tensors = (qx, qy, cand_x, cand_y) + (() if num_tiles is None else (num_tiles,))
     if not _on_card("knn_alpha", *tensors):
         return knn_alpha_plain(qx, qy, cand_x, cand_y, block_q=block_q, tile_d=tile_d,
@@ -120,8 +123,6 @@ def knn_alpha(qx, qy, cand_x, cand_y, *, block_q: int, tile_d: int, num_tiles=No
     if num_tiles is not None and (num_tiles.dtype != torch.int32 or num_tiles.shape != (rows,)
                                   or not num_tiles.is_contiguous()):
         raise ValueError("knn_alpha: num_tiles must be a contiguous int32 tensor, one per row")
-    if rows == 1 and num_tiles is not None:
-        raise ValueError("knn_alpha: a tile table needs one candidate row per query block")
     alpha = torch.empty_like(qx)
     fn = _build.entry(f"aidw_knn_alpha_{_suffix(qx.dtype)}")
     a1, a2, a3, a4, a5 = (float(a) for a in params.alpha_levels)

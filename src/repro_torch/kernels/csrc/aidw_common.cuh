@@ -31,6 +31,12 @@ __device__ __forceinline__ double cos_p(double x) { return cos(x); }
 __device__ __forceinline__ float sqrt_p(float x) { return sqrtf(x); }
 __device__ __forceinline__ double sqrt_p(double x) { return sqrt(x); }
 
+// The near-field and far-cell kernels sum a tile in runs of kSumRun terms,
+// each run left to right from 0, then the run sums left to right: the order
+// of kernels/_common.py: run_sum (SUM_RUN), so kernel and plain version give
+// the same sum wherever they give the same terms.
+constexpr int kSumRun = 32;
+
 // d^2 = dx*dx + dy*dy, rounded after every operation.  A pad point at the
 // sentinel coordinate (finfo.max / 4) overflows to +inf.
 template <typename T>

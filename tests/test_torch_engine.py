@@ -250,8 +250,9 @@ def test_validations_and_unported_options():
     for impl, item in (("naive", "A8"), ("fused", "A8"), ("chunked", "A8"), ("idw", "A8")):
         with pytest.raises(NotImplementedError, match=item):
             build_plan(*data, impl=impl, **kw)
-    with pytest.raises(NotImplementedError, match="A6"):
-        build_plan(*data, impl="grid", phase2="farfield", **kw)
+    for bad in (dict(farfield_rtol=0.0), dict(farfield_rtol=-1e-3), dict(farfield_radius=0)):
+        with pytest.raises(ValueError, match="farfield_r"):
+            build_plan(*data, impl="grid", phase2="farfield", **bad, **kw)
     with pytest.raises(NotImplementedError, match="A7"):
         build_plan(*data, impl="grid", phase2="quadtree", **kw)
     with pytest.raises(NotImplementedError, match="A8"):

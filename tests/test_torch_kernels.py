@@ -230,16 +230,32 @@ def test_wrappers_take_plain_path_on_cpu_only():
                   params=AIDWParams(**P), area=1.0, m_real=200)
 
 
+def test_tile_table_needs_one_row_per_block():
+    """One candidate row with a tile table is a batch of a single query block
+    (the grid path's smallest batch): accepted before the device dispatch,
+    and its walk equals the dense walk; a data row shared by several blocks
+    takes no tile table."""
+    dx, dy, _ = (_t(a) for a in _data(256, 28, np.float32))
+    q = torch.as_tensor(np.random.default_rng(29).random(64).astype(np.float32))
+    kw = dict(block_q=64, tile_d=128, params=AIDWParams(**P), area=1.0, m_real=256)
+    nt = torch.tensor([2], dtype=torch.int32)
+    assert torch.equal(knn_alpha(q, q, dx[None], dy[None], num_tiles=nt, **kw),
+                       knn_alpha(q, q, dx[None], dy[None], **kw))
+    q2 = torch.cat([q, q])
+    with pytest.raises(ValueError, match="one candidate row per query block"):
+        knn_alpha(q2, q2, dx[None], dy[None], num_tiles=nt, **kw)
+
+
 def test_kernel_build_flags_and_interface():
     cmd = _build.nvcc_command("knn", _build.BUILD_DIR / "x.so")
     assert "arch=compute_90a,code=sm_90a" in cmd
     assert not any("fast_math" in c or "fast-math" in c for c in cmd)
     assert {"-O3", "-shared", "-fPIC"} <= set(cmd)
-    assert set(_build.SOURCES) == {"knn", "weight"}
+    assert set(_build.SOURCES) == {"knn", "weight", "near", "far"}
     for name, (lib, argtypes) in _build.ENTRY_POINTS.items():
         assert lib in _build.SOURCES
         assert (_build.CSRC / _build.SOURCES[lib]).read_text().count(name.rsplit("_", 1)[0]) >= 1
-    src = (_build.CSRC / "knn.cu").read_text() + (_build.CSRC / "weight.cu").read_text()
+    src = "".join((_build.CSRC / f).read_text() for f in _build.SOURCES.values())
     assert "powf(" not in src and "atomicAdd" not in src
     assert str(_build.library_path("knn")).startswith(str(_build.BUILD_DIR))
     if not _build.os.path.exists(_build.nvcc_path()):
