@@ -36,7 +36,24 @@ in order (a failed check raises, and the script exits nonzero):
     and B5 at its shapes against their plain versions on sampled blocks;
 11. the far-field overflow arm at the reference test's small shape, bitwise
     against an exact plan;
-12. B4 and B5 timed with CUDA events at the serving batch's shapes.
+12. B4 and B5 timed with CUDA events at the serving batch's shapes;
+13. the quadtree kernel B6 (``phase2="quadtree"``) against its plain version
+    on the card, every level, float32 and float64, at the serving batch's
+    shapes, with controls that a table losing its first node and a sweep
+    without the dipole term fail the check;
+14. the golden quadtree pin (``qtree_*`` of the fixture) on the card;
+15. the quadtree plan built on the card against the one built on the CPU;
+16. the quadtree serving run of ``aidw-pod-1m``: the same four batches, each
+    batch's time, the walk's time alone, stats and launches, its error
+    against the Kahan oracle on sampled queries, and B6 at its shapes against
+    the plain version on sampled blocks;
+17. the quadtree overflow arm at the reference test's small shape, bitwise
+    against an exact plan;
+18. the ring-search arm with every query active on 1,024 queries far
+    outside the data's box: its rings and time, r_obs against a float64
+    brute force;
+19. B6 timed with CUDA events per level at the serving batch's shapes,
+    beside the quadtree, far-field and exact batch times of this run.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Without a CUDA card,
@@ -88,6 +105,8 @@ KERNELS = {
                         replaces="src/repro/kernels/aidw_grid.py:257 _near_weight_kernel"),
     "far_cell": dict(source="src/repro_torch/kernels/csrc/far.cu",
                      replaces="src/repro/kernels/aidw_grid.py:328 _far_cell_kernel"),
+    "far_node": dict(source="src/repro_torch/kernels/csrc/far_node.cu",
+                     replaces="src/repro/kernels/aidw_grid.py:396 _far_node_kernel"),
 }
 
 
@@ -99,6 +118,32 @@ def check(ok, what):
 def report(name, err, tol):
     print(f"  {name}: max err {err:.3e} (tolerance {tol:.3e})", flush=True)
     check(err <= tol, f"{name}: {err} > {tol}")
+
+
+def ulps(k, p, dtype):
+    """Largest |kernel - plain| / |plain| over the nonzero plain sums, in
+    ulps of ``dtype``."""
+    import torch
+
+    k, p = k.double(), p.double()
+    nz = p != 0
+    return float(((k - p).abs()[nz] / p[nz].abs()).max()) / torch.finfo(dtype).eps if bool(nz.any()) else 0.0
+
+
+def hold(tag, k, pl, dtype):
+    """A far-field kernel against its plain version on the same inputs: sum w
+    and sum w z within SUM_ULPS of each sum and zero where the plain sum is
+    zero; B4's min d^2 and hit z bit for bit.  Returns ``(ulps, all outputs
+    bitwise equal, min d^2 and hit z equal)``."""
+    import torch
+
+    for s_k, s_p in zip(k[:2], pl[:2]):
+        check(torch.equal(s_k == 0, s_p == 0), f"{tag}: the same sums are 0")
+    e = max(ulps(k[0], pl[0], dtype), ulps(k[1], pl[1], dtype))
+    same = e == 0.0 and all(torch.equal(a, b) for a, b in zip(k, pl))
+    same_min = len(k) == 2 or (torch.equal(k[2], pl[2]) and torch.equal(k[3], pl[3]))
+    check(e <= SUM_ULPS and same_min, f"{tag} matches its plain version ({e} ulps)")
+    return e, same, same_min
 
 
 def profile_batch(tag, run):
@@ -468,10 +513,14 @@ def main():
     bound_ms, bound_by = bound(sh_pairs, 2 * 4 * M_FULL + 3 * 4 * qx_t.shape[0], flops["knn_soa"])
     print(f"  knn_soa shared row (tiled): {ms} ms (plain {plain_ms} ms, bound {bound_ms} ms by {bound_by}, "
           f"{sh_pairs} pairs)", flush=True)
-    rows_out += farfield_phases(
+    ff_rows, ff_walls = farfield_phases(
         dev=dev, params=params, golden=golden, eps=eps, data=data, queries=queries, sync=sync,
         maxerr=maxerr, time_ms=time_ms, bound=bound, batches=batches, results=results,
         exact_b2_ms=next(r["ms"] for r in rows_out if r["name"] == "weight_soa"))
+    rows_out += ff_rows
+    rows_out += quadtree_phases(
+        dev=dev, params=params, golden=golden, data=data, queries=queries, sync=sync, maxerr=maxerr,
+        time_ms=time_ms, bound=bound, batches=batches, results=results, ff_walls=ff_walls)
     print(f"  total {time.time() - t_start:.1f} s")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -487,7 +536,8 @@ def farfield_phases(*, dev, params, golden, eps, data, queries, sync, maxerr, ti
                     results, exact_b2_ms):
     """Phases 7-12: the far-field Phase 2 (``phase2="farfield"``) on the card,
     with main's data, helpers, and the exact path's serving batches, their
-    results and B2's time.  Returns the B4 and B5 rows of the kernels line."""
+    results and B2's time.  Returns the B4 and B5 rows of the kernels line
+    and the far-field serving batches' wall times."""
     import torch
 
     from repro_torch.core.accuracy import aidw_interpolate_kahan, farfield_error_report
@@ -524,26 +574,8 @@ def farfield_phases(*, dev, params, golden, eps, data, queries, sync, maxerr, ti
                                              block_d=p.cand_block_d, num_tiles=lay.num_tiles)
         return lay, near, alpha * 0.5
 
-    def ulps(k, p, dtype):
-        # largest |kernel - plain| / plain in ulps of the dtype, over nonzero sums
-        k, p = k.double(), p.double()
-        nz = p != 0
-        return float(((k - p).abs()[nz] / p[nz]).max()) / eps[dtype] if bool(nz.any()) else 0.0
-
     def z_of(sw_n, swz_n, md_n, hz_n, sw_f, swz_f):
         return torch.where(md_n <= hit_eps, hz_n, (swz_n + swz_f) / (sw_n + sw_f))
-
-    def hold(tag, k, pl, dtype):
-        # kernel against plain on the same inputs: sum w and sum w z within
-        # SUM_ULPS of each sum, zero where the plain sum is zero; B4's
-        # min d^2 and hit z bit for bit
-        for s_k, s_p in zip(k[:2], pl[:2]):
-            check(torch.equal(s_k == 0, s_p == 0), f"{tag}: the same sums are 0")
-        e = max(ulps(k[0], pl[0], dtype), ulps(k[1], pl[1], dtype))
-        same = e == 0.0 and all(torch.equal(a, b) for a, b in zip(k, pl))
-        same_min = len(k) == 2 or (torch.equal(k[2], pl[2]) and torch.equal(k[3], pl[3]))
-        check(e <= SUM_ULPS and same_min, f"{tag} matches its plain version ({e} ulps)")
-        return e, same, same_min
 
     def near_of(lay, near, ah, block_q, blocks=None):
         # B4's and B5's arguments (B5's less the plan's cell arrays), for all
@@ -684,7 +716,7 @@ def farfield_phases(*, dev, params, golden, eps, data, queries, sync, maxerr, ti
     sync()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
-    ff_results = []
+    ff_results, ff_walls = [], []
     for (n, seed), (qx, qy), (_, _, _, exact_wall) in zip(SERVING, batches, results):
         before = dict(_build.LAUNCHES)
         sync()
@@ -694,6 +726,7 @@ def farfield_phases(*, dev, params, golden, eps, data, queries, sync, maxerr, ti
         wall = time.time() - t0
         delta = {k: _build.LAUNCHES[k] - before[k] for k in before}
         ff_results.append((z, a, stats))
+        ff_walls.append(wall)
         n_over = int(stats["p2_overflow_queries"])
         print(f"  batch n={n} seed={seed}: {wall} s (exact path {exact_wall} s, {exact_wall / wall:.2f}x), "
               f"near_points_mean {float(stats['near_points_mean'])}, far_cells_mean "
@@ -826,7 +859,344 @@ def farfield_phases(*, dev, params, golden, eps, data, queries, sync, maxerr, ti
               f"{ops} operations)", flush=True)
     print(f"  B4 + B5 {total_ms} ms per 65,536-query batch against exact B2's {exact_b2_ms} ms "
           f"(phase 6), {exact_b2_ms / total_ms:.2f}x")
-    return rows
+    return rows, ff_walls
+
+
+def quadtree_phases(*, dev, params, golden, data, queries, sync, maxerr, time_ms, bound, batches, results,
+                    ff_walls):
+    """Phases 13-19: the quadtree far field (``phase2="quadtree"``) and the
+    ring-search arm on the card, with main's data, helpers and serving
+    batches, the exact path's results and the far-field batch times.
+    Returns the B6 row of the kernels line."""
+    import torch
+
+    from repro_torch.core.accuracy import aidw_interpolate_kahan, farfield_error_report
+    from repro_torch.core.aidw import AIDWParams, brute_r_obs, mean_k, sqrt_rn
+    from repro_torch.core.grid import _ring_search, build_grid
+    from repro_torch.engine import build_plan, execute, execute_with_stats
+    from repro_torch.engine.execute import _grid_layout, _near_field, _quadtree_walk
+    from repro_torch.engine.plan import QT_ARRAYS
+    from repro_torch.errors import UnprovableRtolWarning
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.aidw_grid import (
+        block_rectangles,
+        phase1_alpha_from_candidates,
+        phase2_far_nodes,
+        phase2_far_nodes_plain,
+        phase2_near_weights_plain,
+    )
+
+    f32, f64 = torch.float32, torch.float64
+    hit_eps = params.exact_hit_eps
+
+    def qt_plan(dx, dy, dz, device=None):
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            p = build_plan(dx, dy, dz, params=params, area=1.0, impl="grid", phase2="quadtree", device=device)
+        return p, [str(w.message) for w in rec if issubclass(w.category, UnprovableRtolWarning)]
+
+    def qt_inputs(p, qx, qy):
+        # B6's inputs as the engine makes them: the blocked view, alpha from
+        # Phase 1, the near field, and per level the walk's table, its tile
+        # counts and the level's node arrays
+        lay = _grid_layout(p, qx, qy)
+        alpha = phase1_alpha_from_candidates(lay.qx_v, lay.qy_v, lay.cand_x, lay.cand_y, params=params, area=1.0,
+                                             m_real=M_FULL, block_q=p.block_q, block_d=p.cand_block_d,
+                                             num_tiles=lay.num_tiles)
+        home = block_rectangles(p.grid, lay.cx_v, lay.cy_v, torch.zeros_like(lay.cx_v), p.block_q)
+        levels = []
+        for lv, (tbl, n_closed, _, _) in enumerate(_quadtree_walk(p, *home)):
+            k_pad, tile = p.qt_levels[lv][3:]
+            nt = ((n_closed.clamp(max=k_pad) + tile - 1) // tile).to(torch.int32)
+            levels.append((tbl, nt, n_closed, p.far[lv][:6], tile))
+        return lay, alpha * 0.5, home, levels
+
+    def b6(lay, ah, levels, block_q, rows=None, plain=False, drop_first=False, no_dipole=False):
+        # B6 on every level (kernel or plain), all query blocks or the blocks
+        # of `rows`; the controls drop each row's first closed node or the
+        # dipole moments
+        fn = phase2_far_nodes_plain if plain else phase2_far_nodes
+        qx, qy = lay.qx_v, lay.qy_v
+        if rows is not None:
+            qx, qy, ah = qx[rows[0]], qy[rows[0]], ah[rows[0]]
+        out = []
+        for tbl, nt, _, nodes, tile in levels:
+            if rows is not None:
+                tbl, nt = tbl[rows[1]], nt[rows[1]]
+            if drop_first:
+                tbl = tbl.clone()
+                tbl[:, 0] = nodes[0].shape[0] - 1
+            if no_dipole:
+                nodes = (*nodes[:4], torch.zeros_like(nodes[4]), torch.zeros_like(nodes[5]))
+            out.append(fn(qx, qy, ah, tbl.contiguous(), nt.contiguous(), nodes, block_q=block_q, tile_d=tile))
+        return out
+
+    def level_ulps(a, b, dtype):
+        return max(max(ulps(x[0], y[0], dtype), ulps(x[1], y[1], dtype)) for x, y in zip(a, b))
+
+    # ------------------------------------------------ 13. (a) B6 vs plain
+    print("== 13. (a) quadtree kernel B6 (far_node.cu) vs its plain version, every level (aidw-pod-1m quadtree "
+          "plan, serving batch n=65536)", flush=True)
+    qt32, b6_err = None, 0.0
+    for dtype in (f32, f64):
+        name = str(dtype).split(".")[1]
+        p, _ = qt_plan(*data(dtype))
+        qx, qy = queries(*SERVING[0], dtype)
+        lay, ah, home, levels = qt_inputs(p, qx, qy)
+        k_out, p_out = b6(lay, ah, levels, p.block_q), b6(lay, ah, levels, p.block_q, plain=True)
+        sync()
+        per_level = []
+        for lv, (k, pl) in enumerate(zip(k_out, p_out)):
+            e, same, _ = hold(f"B6 {name} level {lv}", k, pl, dtype)
+            per_level.append((e, same, float(levels[lv][2].float().mean()), int(levels[lv][2].max()),
+                              p.qt_levels[lv][3]))
+        e_drop = level_ulps(b6(lay, ah, levels, p.block_q, plain=True, drop_first=True), p_out, dtype)
+        e_dip = level_ulps(b6(lay, ah, levels, p.block_q, plain=True, no_dipole=True), p_out, dtype)
+        for lv, (e, same, mean_c, max_c, k_pad) in enumerate(per_level):
+            print(f"  B6 {name} level {lv}: sum_w, sum_wz within {e:.2f} ulps (tolerance {SUM_ULPS}), bitwise equal: "
+                  f"{same}; closed nodes per block mean {mean_c}, max {max_c} of k_pad {k_pad}")
+        print(f"  B6 {name} controls: the plain sweep with each row's first closed node dropped is off by "
+              f"{e_drop:.3e} ulps, without the dipole term by {e_dip:.3e} ulps", flush=True)
+        check(min(e_drop, e_dip) > SUM_ULPS, f"the B6 tolerance catches a lost node and a lost dipole ({name})")
+        if dtype == f32:
+            near = _near_field(p, lay.cx_v, lay.cy_v)
+            nsum = phase2_near_weights_plain(lay.qx_v, lay.qy_v, ah, near.cand_x, near.cand_y, near.cand_z,
+                                             near.num_tiles, block_q=p.block_q, tile_d=p.p2_block_d)
+
+            def z_all(far):
+                sw, swz = nsum[0], nsum[1]
+                for s_w, s_wz in far:
+                    sw, swz = sw + s_w, swz + s_wz
+                return torch.where(nsum[2] <= hit_eps, nsum[3], swz / sw)
+
+            b6_err = maxerr(z_all(k_out), z_all(p_out))
+            qt32 = (p, lay, ah, levels)
+        del k_out, p_out
+
+    # ------------------------------------------------ 14. (b) golden pin
+    print("== 14. (b) golden quadtree pin (qtree) on the card", flush=True)
+    arr = [torch.as_tensor(golden[f"qtree_{n}"]).to(dev) for n in ("dx", "dy", "dz", "qx", "qy")]
+    gp = AIDWParams(k=int(golden["k"]), area=float(golden["area"]))
+    gxq = int(golden["qtree_gx"])
+    pin = build_plan(*arr[:3], params=gp, area=gp.area, impl="grid", grid=build_grid(*arr[:3], gx=gxq, gy=gxq),
+                     phase2="quadtree", block_q=64)
+    z, a = execute(pin, arr[3], arr[4])
+    g_bound = float(golden["qtree_bound"])
+    fp_slack = FP_SLACK_ULPS * float(np.finfo(np.float32).eps) * math.sqrt(arr[0].shape[0])
+    rel = float(np.abs(z.cpu().double().numpy() - golden["qtree_z"].astype(np.float64)).max()) / float(
+        np.abs(golden["qtree_dz"]).max())
+    ea = np.abs(a.cpu().double().numpy() - golden["qtree_alpha"])
+    print(f"  qtree: plan bound {pin.farfield_bound} (committed {g_bound}); z off the committed Kahan reference by "
+          f"{rel:.3e} relative (limit bound + fp slack {g_bound + fp_slack:.3e}); max |dalpha| {ea.max():.3e}")
+    check(abs(pin.farfield_bound - g_bound) <= 1e-9 * abs(g_bound) and g_bound <= 1e-3, "qtree bound")
+    check(rel <= g_bound + fp_slack, "qtree z within the bound")
+    check(bool((ea <= GOLDEN_ATOL + GOLDEN_RTOL * np.abs(golden["qtree_alpha"])).all()), "qtree alpha")
+
+    # ---------------------------------------------- 15. (c) card vs CPU plan
+    print("== 15. (c) quadtree plan: built on the card vs built on the CPU (aidw-pod-1m, float32)", flush=True)
+    dx, dy, dz = data(f32)
+    sync()
+    t0 = time.time()
+    plan_qt, warned = qt_plan(dx, dy, dz)
+    sync()
+    qt_build_s = time.time() - t0
+    t0 = time.time()
+    plan_cpu, warned_cpu = qt_plan(dx.cpu(), dy.cpu(), dz.cpu(), device="cpu")
+    cpu_build_s = time.time() - t0
+    diffs = [f for f in ("cand_capacity", "cand_block_d", "seam_level", "grid_rebuilds", "block_d",
+                         "farfield_radius", "p2_capacity", "p2_block_d", "qt_levels")
+             if getattr(plan_qt, f) != getattr(plan_cpu, f)]
+    for f in ("farfield_bound", "qt_tau"):
+        if abs(getattr(plan_qt, f) - getattr(plan_cpu, f)) > 2 * np.finfo(np.float64).eps * abs(getattr(plan_cpu, f)):
+            diffs.append(f)
+    if warned != warned_cpu:
+        diffs.append("warnings")
+    worst = 0.0
+    for lv, (lc, lh) in enumerate(zip(plan_qt.far, plan_cpu.far)):
+        for name, a_c, a_h in zip(QT_ARRAYS, lc, lh):
+            a_c = a_c.cpu()
+            if name in ("count", "z_sum"):
+                if not torch.equal(a_c, a_h):
+                    diffs.append(f"level {lv} {name}")
+            else:
+                w = ulps(a_c, a_h, f32)
+                worst = max(worst, w)
+                if w > 2:
+                    diffs.append(f"level {lv} {name}")
+    print(f"  built in {qt_build_s} s on the card, {cpu_build_s} s on the CPU; radius, capacities, qt_levels, counts "
+          f"and z-sums equal, bound, tau and node floats within 2 ulps, warning equal: {not diffs} {diffs}; node "
+          f"floats within {worst} ulps")
+    check(not diffs, "the card's quadtree plan equals the CPU's")
+    del plan_cpu
+
+    # ------------------------------------------------ 16. (d) serving run
+    print(f"== 16. (d) quadtree serving: aidw-pod-1m, clustered m = 2^20, k = 10, float32, farfield_rtol = "
+          f"{plan_qt.farfield_rtol}", flush=True)
+    n_lv = len(plan_qt.qt_levels)
+    print(f"  plan: radius {plan_qt.farfield_radius}, bound {plan_qt.farfield_bound}, qt_tau {plan_qt.qt_tau}, "
+          f"UnprovableRtolWarning fired: {bool(warned)}; p2_capacity {plan_qt.p2_capacity}, p2_block_d "
+          f"{plan_qt.p2_block_d}; qt_levels (nx, ny, step, k_pad, tile) {plan_qt.qt_levels}")
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    qt_results, qt_walls = [], []
+    scale = float(dz.abs().max())
+    fp_slack = FP_SLACK_ULPS * float(np.finfo(np.float32).eps) * math.sqrt(M_FULL)
+    for (n, seed), (qx, qy), (_, a_exact, _, exact_wall), ff_wall in zip(SERVING, batches, results, ff_walls):
+        before = dict(_build.LAUNCHES)
+        sync()
+        t0 = time.time()
+        z, a, stats = execute_with_stats(plan_qt, qx, qy)
+        sync()
+        wall = time.time() - t0
+        delta = {k: _build.LAUNCHES[k] - before[k] for k in before}
+        qt_results.append((z, a, stats))
+        qt_walls.append(wall)
+        n_over = int(stats["p2_overflow_queries"])
+        print(f"  batch n={n} seed={seed}: {wall} s (far-field {ff_wall} s, exact {exact_wall} s), near_points_mean "
+              f"{float(stats['near_points_mean'])}, far_cells_mean {float(stats['far_cells_mean'])}, cells_per_level "
+              f"{stats['cells_per_level'].tolist()}, opened_fraction {float(stats['opened_fraction'])}, "
+              f"p2_overflow_queries {n_over}, overflow_queries {int(stats['overflow_queries'])}, launches {delta}",
+              flush=True)
+        check(delta["far_node"] == n_lv and delta["near_weight"] == 1 and delta["knn_skip"] == 1
+              and delta["far_cell"] == 0, f"each batch launches B3 and B4 once and B6 once per level ({n_lv})")
+        check(delta["weight_soa"] == (1 if n_over else 0), "B2 runs once if a near field or table overflows")
+        check(bool(torch.isfinite(z).all()) and z.shape == (n,), f"finite z of shape ({n},)")
+        check(torch.equal(a, a_exact), "alpha equals the exact path's bit for bit")
+        check(abs(float(stats["cells_per_level"].sum()) - float(stats["far_cells_mean"]))
+              <= 1e-6 * float(stats["far_cells_mean"]) and 0.0 <= float(stats["opened_fraction"]) <= 1.0,
+              "cells_per_level sums to far_cells_mean; opened_fraction in [0, 1]")
+    qt_launches = dict(_build.LAUNCHES)
+    print(f"  launches on the quadtree path: {qt_launches}")
+    print(f"  max memory allocated {torch.cuda.max_memory_allocated()} bytes")
+    check(qt_launches["far_node"] > 0 and qt_launches["near_weight"] > 0, "the quadtree path launched B6 and B4")
+    for (n, seed), (qx, qy), (z, _, _) in zip(SERVING, batches, qt_results):
+        # the walk alone, at this batch's blocks
+        lay = _grid_layout(plan_qt, qx, qy)
+        home = block_rectangles(plan_qt.grid, lay.cx_v, lay.cy_v, torch.zeros_like(lay.cx_v), plan_qt.block_q)
+        sync()
+        t0 = time.time()
+        _quadtree_walk(plan_qt, *home)
+        sync()
+        walk_s = time.time() - t0
+        idx = torch.as_tensor(np.random.default_rng(seed).choice(n, N_SAMPLE, replace=False), device=dev)
+        z_ref, _ = aidw_interpolate_kahan(dx, dy, dz, qx[idx], qy[idx], params, area=1.0)
+        batch_rel = maxerr(z[idx], z_ref) / scale
+        rep = farfield_error_report(plan_qt, qx[idx], qy[idx])
+        print(f"  batch n={n} seed={seed}: walk alone {walk_s} s; {N_SAMPLE} sampled queries off the Kahan oracle by "
+              f"{batch_rel:.3e} relative; farfield_error_report on them: max_rel_err {rep['max_rel_err']:.3e}, rms "
+              f"{rep['rms_rel_err']:.3e}, bound {rep['bound']} + fp slack {rep['fp_slack']:.3e}, within_bound "
+              f"{rep['within_bound']}", flush=True)
+        check(batch_rel <= plan_qt.farfield_bound + fp_slack and rep["within_bound"],
+              f"quadtree batch n={n} within its proved bound")
+        # B6 at this batch's shapes against its plain version on N_BLOCKS
+        # sampled query blocks
+        lay, ah, _, levels = qt_inputs(plan_qt, qx, qy)
+        nb = levels[0][0].shape[0]
+        blocks = torch.as_tensor(np.sort(np.random.default_rng(seed).choice(nb, min(N_BLOCKS, nb), replace=False)),
+                                 device=dev)
+        rows = (blocks[:, None] * plan_qt.block_q + torch.arange(plan_qt.block_q, device=dev)).reshape(-1)
+        k_out = b6(lay, ah, levels, plan_qt.block_q)
+        p_out = b6(lay, ah, levels, plan_qt.block_q, rows=(rows, blocks), plain=True)
+        e_b, same_b = 0.0, True
+        for lv, (k, pl) in enumerate(zip(k_out, p_out)):
+            e, same, _ = hold(f"B6 batch n={n} level {lv}", tuple(o[rows] for o in k), pl, f32)
+            e_b, same_b = max(e_b, e), same_b and same
+        print(f"  batch n={n} seed={seed}: B6 on {blocks.numel()} of its {nb} query blocks, every level, against its "
+              f"plain version: within {e_b:.2f} ulps (tolerance {SUM_ULPS}), bitwise equal: {same_b}", flush=True)
+        del lay, ah, levels, k_out, p_out
+    qx, qy = batches[0]
+    z2, a2, _ = execute_with_stats(plan_qt, qx, qy)
+    check(torch.equal(z2, qt_results[0][0]) and torch.equal(a2, qt_results[0][1]), "quadtree run-to-run bits")
+    print("  quadtree run-to-run bitwise equal: True")
+    profile_batch(f"quadtree n={qx.shape[0]}", lambda: execute_with_stats(plan_qt, qx, qy))
+
+    # ------------------------------------------------ 17. (e) overflow arm
+    print("== 17. (e) quadtree overflow arm: 4,096 points, 96 queries over [-3, 3]^2, radius 1", flush=True)
+    rng = np.random.default_rng(14)
+    odx, ody = rng.random(4096).astype(np.float32), rng.random(4096).astype(np.float32)
+    odz = (np.sin(6 * odx) * np.cos(6 * ody) + 2.0).astype(np.float32)
+    oqx = torch.as_tensor((rng.random(96) * 6 - 3).astype(np.float32), device=dev)
+    oqy = torch.as_tensor((rng.random(96) * 6 - 3).astype(np.float32), device=dev)
+    op = AIDWParams(k=10, area=1.0, r_max=64.0)
+    od = [torch.as_tensor(v, device=dev) for v in (odx, ody, odz)]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        pq = build_plan(*od, params=op, area=1.0, impl="grid", phase2="quadtree", farfield_radius=1,
+                        query_occupancy=64.0)
+        pe = build_plan(*od, params=op, area=1.0, impl="grid", query_occupancy=64.0)
+    _build.reset_launch_counts()
+    z_q, a_q, st = execute_with_stats(pq, oqx, oqy)
+    o_launches = dict(_build.LAUNCHES)
+    z_ex, a_ex = execute(pe, oqx, oqy)
+    same = torch.equal(z_q, z_ex) and torch.equal(a_q, a_ex)
+    print(f"  p2_capacity {pq.p2_capacity} of m = {pq.m}; p2_overflow_queries {int(st['p2_overflow_queries'])} of 96; "
+          f"launches {o_launches}; z and alpha equal the exact plan's bit for bit: {same}")
+    check(int(st["p2_overflow_queries"]) == 96 and o_launches["weight_soa"] == 1, "the batch overflows into B2")
+    check(same, "the quadtree overflow arm is the exact plan's, bit for bit")
+
+    # ------------------------------------------------ 18. (f) the ring arm
+    print("== 18. (f) ring search, every query active: 1,024 queries over [-3, 3]^2 against the aidw-pod-1m grid",
+          flush=True)
+    grid = plan_qt.grid
+    rng = np.random.default_rng(18)
+    rqx, rqy = (torch.as_tensor((rng.random(1024) * 6 - 3).astype(np.float32), device=dev) for _ in range(2))
+    sync()
+    t0 = time.time()
+    best, rings = _ring_search(grid, rqx, rqy, params.k, active=torch.ones(1024, dtype=torch.bool, device=dev))
+    r_obs = mean_k(sqrt_rn(best))
+    sync()
+    ring_s = time.time() - t0
+    ref = brute_r_obs(dx.double(), dy.double(), rqx.double(), rqy.double(), params.k)
+    e_ring = float(((r_obs.double() - ref).abs() / ref).max())
+    print(f"  {rings} rings (cover radius of a corner query {max(grid.gx, grid.gy) - 1}), {ring_s} s host clock "
+          f"({grid.gx}x{grid.gy} cells, cap {grid.cap}); r_obs vs float64 brute force: max rel err {e_ring:.3e} "
+          f"(tolerance 1e-5)", flush=True)
+    check(e_ring <= 1e-5, "ring-search r_obs matches the float64 brute force")
+    # the arm as the serving path runs it: the queries of the first 65,536
+    # batch whose block overflowed the candidate capacity
+    lay = _grid_layout(plan_qt, *batches[0])
+    sync()
+    t0 = time.time()
+    _, rings = _ring_search(grid, lay.qx_s, lay.qy_s, params.k, active=lay.over_q)
+    sync()
+    print(f"  serving batch n={batches[0][0].shape[0]} seed={SERVING[0][1]}: the arm for its {int(lay.over_q.sum())} "
+          f"overflowed queries walks {rings} rings in {time.time() - t0} s host clock", flush=True)
+
+    # ------------------------------------------------ 19. (g) B6 timings
+    print("== 19. (g) B6 timings (CUDA events, serving batch n=65536, m=2^20, float32)", flush=True)
+    p, lay, ah, levels = qt32
+    n_v = lay.qx_v.shape[0]
+    # What these inputs need: a term for each closed node of each block, 20
+    # operations per pair counted from far_node.cu's loop (d^2 5, max, log,
+    # mul, exp, 2*ah*w, the division, the dipole's 2 muls, add and mul, the
+    # count's mul and add, z_sum's mul, the dipole's add and the sum's add;
+    # exp, log and the division one operation each).  Bytes: queries and
+    # alpha read once, the closed ids and the level's node arrays read once,
+    # the two sums written once.
+    total_ms = total_plain = total_bound = 0.0
+    total_pairs, bound_kinds = 0, set()
+    for lv, (tbl, nt, n_closed, nodes, tile) in enumerate(levels):
+        args = (lay.qx_v, lay.qy_v, ah, tbl, nt, nodes)
+        ms = time_ms(lambda: phase2_far_nodes(*args, block_q=p.block_q, tile_d=tile), 10)
+        plain_ms = time_ms(lambda: phase2_far_nodes_plain(*args, block_q=p.block_q, tile_d=tile), 1, warmup=0)
+        n_closed_tot = int(n_closed.long().sum())
+        pairs = p.block_q * n_closed_tot
+        n_bytes = 3 * 4 * n_v + 4 * n_closed_tot + 6 * 4 * nodes[0].shape[0] + 2 * 4 * n_v
+        bound_ms, bound_by = bound(20 * pairs, n_bytes, 1)
+        total_ms, total_plain, total_bound, total_pairs = (total_ms + ms, total_plain + plain_ms,
+                                                           total_bound + bound_ms, total_pairs + pairs)
+        bound_kinds.add(bound_by)
+        print(f"  far_node level {lv}: {ms} ms (plain {plain_ms} ms, bound {bound_ms} ms by {bound_by}, {pairs} pairs, "
+              f"k_pad {p.qt_levels[lv][3]}, tile {tile})", flush=True)
+    print(f"  far_node, {len(levels)} launches per batch: {total_ms} ms (plain {total_plain} ms, bound {total_bound} ms, "
+          f"{total_pairs} pairs = block_q x sum of closed nodes)")
+    print(f"  batch wall times (host clock, this call): quadtree {qt_walls}, far-field {ff_walls}, exact "
+          f"{[r[3] for r in results]} s")
+    return [dict(name="far_node", route="cuda", **KERNELS["far_node"], launches=qt_launches["far_node"],
+                 max_abs_err=b6_err, ms=total_ms, plain_ms=total_plain, bound_ms=total_bound,
+                 bound_by="operations" if bound_kinds == {"operations"} else "bytes",
+                 library_ms=None)]
 
 
 if __name__ == "__main__":

@@ -14,6 +14,7 @@ import dataclasses
 import math
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.core.knn import running_k_best
@@ -82,10 +83,10 @@ def adaptive_alpha(r_obs, m: int, area: float, params: AIDWParams):
 
 def sqrt_rn(x):
     """Correctly rounded square root, as XLA and CUDA give it.  PyTorch's CPU
-    float32 ``sqrt`` can be an ulp off; the float64 root of a float32 value,
-    rounded back to float32, is exact."""
-    if x.dtype == torch.float32:
-        return torch.sqrt(x.double()).float()
+    ``sqrt`` can be an ulp off in float32 and in float64, so on the CPU the
+    root is numpy's (the processor's square-root instruction)."""
+    if x.device.type == "cpu":
+        return torch.as_tensor(np.sqrt(x.numpy()))
     return torch.sqrt(x)
 
 

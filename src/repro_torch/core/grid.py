@@ -41,6 +41,10 @@ MAX_CELLS_PER_AXIS = 512
 
 _I32_MIN, _I32_MAX = -(2 ** 31), 2 ** 31 - 1
 
+# Squared distances one fold of the ring search holds at once (64 MiB in
+# float32): ring cells are folded in chunks of this many query-point pairs.
+_RING_FOLD_ELEMS = 1 << 24
+
 
 @dataclasses.dataclass(frozen=True)
 class UniformGrid:
@@ -194,17 +198,24 @@ def _ring_cell_offset(r, i):
 
 
 def _ring_search(grid: UniformGrid, qx, qy, k: int, active=None):
-    """Expanding ring search; returns ``(best (n, k), iterations)``.
+    """Expanding ring search; returns ``(best (n, k), rings)``.
 
-    Each iteration folds one cell of the current ring into every live
-    query's k-best set; an empty ring completes in one step, and a query
-    stops once the ring bound proves its k-best final.  The JAX package runs
-    this as one ``while_loop``; here it is a Python loop over tensors, so
-    every iteration syncs with the device to test the exit condition.  Only
-    the ``active`` queries enter the loop, so an all-inactive batch runs
-    zero iterations: on the serving path the loop serves only queries whose
-    block overflowed the plan's capacity.  It is plain tensor code, not a
-    kernel; a kernel for it is later work.
+    Each iteration folds one whole Chebyshev ring around every live query's
+    clamped home cell into its k-best set, then tests the stop rule once: a
+    query stops when ``best[k-1] <= (r * cell_min)^2`` or ``r >= r_cover``.
+    Every live query advances one ring per iteration, so all of them are at
+    the same ``r`` and share ring r's ``8r`` cell offsets; the cells are
+    folded in chunks of at most ``_RING_FOLD_ELEMS`` distances with no sync
+    between chunks.  Cells outside the grid, and every cell of a ring the
+    integral image shows empty, read the all-sentinel row (+inf, folded as
+    nothing).  ``running_k_best`` keeps the k smallest values, duplicates
+    included, so the result does not depend on the order of the folds: it
+    has the bits of the JAX package's ``while_loop``, which folds one cell
+    per step, wherever the two round d^2 alike.  The one sync per ring picks
+    the queries that go on.  Only the ``active`` queries enter, so an
+    all-inactive batch walks zero rings: on the serving path the search
+    serves only queries whose block overflowed the plan's capacity.  It is
+    plain tensor code, not a kernel; a kernel for it is later work.
     """
     n = qx.shape[0]
     dtype, dev = qx.dtype, qx.device
@@ -213,43 +224,38 @@ def _ring_search(grid: UniformGrid, qx, qy, k: int, active=None):
     if idx.numel() == 0:
         return out, 0
     qx, qy = qx[idx], qy[idx]
-    na = idx.shape[0]
     gx, gy = grid.gx, grid.gy
     cx, cy = cell_of(grid, qx, qy)
     cell_min = torch.minimum(grid.cell_size[0], grid.cell_size[1]).to(dtype)
     r_cover = cover_radius(grid, cx, cy)
-    qxc, qyc = qx[:, None], qy[:, None]
-    best = out[:na].clone()
-    r = torch.zeros((na,), dtype=torch.long, device=dev)
-    i = torch.zeros_like(r)
-    done = torch.zeros((na,), dtype=torch.bool, device=dev)
-    iterations = 0
-    while not bool(done.all()):
-        iterations += 1
-        ring_n = torch.where(r == 0, 1, 8 * r)
-        inner = torch.where(r > 0, block_count(grid, cx, cy, r - 1), 0)
-        ring_cnt = block_count(grid, cx, cy, r) - inner
-        at_end = i >= ring_n
-        skip = (ring_cnt == 0) & (i == 0)  # whole ring empty: complete in one step
-        scan_now = ~done & ~at_end & ~skip
-
-        ox, oy = _ring_cell_offset(r, i)
-        ccx, ccy = cx + ox, cy + oy
-        valid = scan_now & (ccx >= 0) & (ccx < gx) & (ccy >= 0) & (ccy < gy)
-        cid = torch.where(valid, ccy * gx + ccx, grid.n_cells)  # sentinel row
-        px, py = grid.cell_x[cid], grid.cell_y[cid]
-        d2 = (qxc - px) ** 2 + (qyc - py) ** 2  # pad slots overflow to +inf
-        best = torch.where(scan_now[:, None], running_k_best(best, d2), best)
-
-        completing = ~done & (at_end | skip)
-        bound = r.to(dtype) * cell_min
-        stop = completing & ((best[:, k - 1] <= bound * bound) | (r >= r_cover))
-        done = done | stop
-        adv = completing & ~stop
-        r = torch.where(adv, r + 1, r)
-        i = torch.where(adv, 0, torch.where(scan_now, i + 1, i))
+    best = out[:idx.shape[0]].clone()
+    live = torch.arange(idx.shape[0], device=dev)
+    r = 0
+    while True:
+        lx, ly, lcx, lcy = qx[live, None], qy[live, None], cx[live, None], cy[live, None]
+        lbest = best[live]
+        inner = block_count(grid, lcx, lcy, r - 1) if r > 0 else 0
+        filled = block_count(grid, lcx, lcy, r) - inner > 0
+        ring_n = 1 if r == 0 else 8 * r
+        step = max(1, _RING_FOLD_ELEMS // (live.shape[0] * grid.cap))
+        for i0 in range(0, ring_n, step):
+            i = torch.arange(i0, min(ring_n, i0 + step), device=dev)
+            ox, oy = _ring_cell_offset(torch.full_like(i, r), i)
+            ccx, ccy = lcx + ox, lcy + oy
+            valid = filled & (ccx >= 0) & (ccx < gx) & (ccy >= 0) & (ccy < gy)
+            cid = torch.where(valid, ccy * gx + ccx, grid.n_cells)  # sentinel row
+            px = grid.cell_x[cid].reshape(cid.shape[0], -1)
+            py = grid.cell_y[cid].reshape(cid.shape[0], -1)
+            lbest = running_k_best(lbest, (lx - px) ** 2 + (ly - py) ** 2)  # pads overflow to +inf
+        best[live] = lbest
+        bound = torch.tensor(r, dtype=dtype, device=dev) * cell_min
+        stop = (lbest[:, k - 1] <= bound * bound) | (r >= r_cover[live])
+        live = live[~stop]
+        if live.numel() == 0:
+            break
+        r += 1
     out[idx] = best
-    return out, iterations
+    return out, r + 1
 
 
 def grid_knn(grid: UniformGrid, qx, qy, k: int, active=None):
@@ -447,3 +453,127 @@ def cell_aggregates(grid: UniformGrid) -> CellAggregates:
     z_dev_max = float(torch.where(mask, (z_cells - z_mean[:, None]).abs(), 0.0).max())
     z_abs_max = float(torch.where(mask, z_cells.abs(), 0.0).max())
     return CellAggregates(cent_x, cent_y, cnt, z_sum, ix, iy, e_max, z_dev_max, z_abs_max)
+
+
+class QuadtreeLevel(NamedTuple):
+    """One level of the far-field quadtree (plan time, DESIGN.md section 8).
+
+    Level 0 is the grid's cells; a level-``l`` node covers ``2**l x 2**l``
+    cells (edge nodes the clipped remainder).  Each level is one flat set of
+    ``nx * ny`` nodes in row-major order.  Per node: point ``count`` (data
+    dtype), ``z_sum``, the points' centroid (the node's geometric centre
+    when empty), the first z-moment about the centroid ``(mx, my) = sum_j
+    z_j (p_j - cent)``, ``e`` (an upper bound on the point-to-centroid
+    distance, exact at level 0) and ``zd`` (the same for ``|z_j - z mean|``).
+    ``e_max`` / ``zd_max`` are their maxima over the nonempty nodes.
+    """
+
+    nx: int
+    ny: int
+    step: int             # cells per node side (2**level)
+    cent_x: torch.Tensor  # (nx*ny,) centroid x (node centre when empty)
+    cent_y: torch.Tensor
+    count: torch.Tensor   # (nx*ny,) point count, data dtype
+    z_sum: torch.Tensor
+    mx: torch.Tensor      # (nx*ny,) first z-moment about the centroid, x
+    my: torch.Tensor
+    e: torch.Tensor       # (nx*ny,) dispersion radius (upper bound)
+    zd: torch.Tensor      # (nx*ny,) z spread (upper bound)
+    e_max: float
+    zd_max: float
+
+
+def quadtree_level_count(gx: int, gy: int) -> int:
+    """Levels of :func:`quadtree_aggregates`: coarsen by 2 per level until at
+    most 2 nodes remain per axis (a coarser root could never be closed)."""
+    levels = 1
+    g = max(gx, gy)
+    while (g + 1) // 2 > 2 and (1 << (levels - 1)) < g:
+        g = (g + 1) // 2
+        levels += 1
+    return levels
+
+
+def _node_centres(grid: UniformGrid, nx: int, ny: int, step: int, dtype):
+    """Geometric centres of a level's nodes, ``(ny, nx)`` each (empty nodes)."""
+    dev = grid.origin.device
+    jx = torch.arange(nx, device=dev)
+    jy = torch.arange(ny, device=dev)
+    x_mid = 0.5 * (jx * step + ((jx + 1) * step).clamp(max=grid.gx)).to(dtype)
+    y_mid = 0.5 * (jy * step + ((jy + 1) * step).clamp(max=grid.gy)).to(dtype)
+    o, s = grid.origin.to(dtype), grid.cell_size.to(dtype)
+    cx = o[0] + x_mid * s[0]
+    cy = o[1] + y_mid * s[1]
+    return cx[None, :].expand(ny, nx), cy[:, None].expand(ny, nx)
+
+
+def _pad_even(a, ny: int, nx: int):
+    """Pad a ``(ny, nx)`` level image with zeros (empty nodes) to even sides."""
+    return torch.nn.functional.pad(a, (0, nx % 2, 0, ny % 2))
+
+
+def quadtree_aggregates(grid: UniformGrid) -> tuple[QuadtreeLevel, ...]:
+    """Bottom-up quadtree of far-field aggregates, rounded as the reference
+    rounds them.  Level 0 comes from the padded cell layout (row sums in
+    :func:`xla_row_sum`'s order, roots through ``sqrt_rn``); each coarser
+    level combines 2x2 children, one operation at a time, in the reference's
+    association order: count, z-sum and the count-weighted centroid sums as
+    ``((c00 + c01) + c10) + c11``, the moments as a sum from 0 over the
+    children of ``m_c + s_c (cent_c - cent)`` (exact re-aggregation of the
+    first moment), and the conservative bounds
+
+        e  = max over nonempty children of |cent_c - cent| + e_c
+        zd = max over nonempty children of |zbar_c - zbar| + zd_c.
+    """
+    nc = grid.n_cells
+    dtype, dev = grid.pt_x.dtype, grid.pt_x.device
+    big = coord_sentinel(dtype, dev)
+    agg = cell_aggregates(grid)
+    cx_cells = grid.cell_x[:nc]
+    cy_cells = grid.cell_y[:nc]
+    z_cells = grid.cell_z[:nc]
+    mask = cx_cells < big / 2
+    dev_x = torch.where(mask, cx_cells - agg.cent_x[:, None], 0.0)
+    dev_y = torch.where(mask, cy_cells - agg.cent_y[:, None], 0.0)
+    e0 = sqrt_rn((dev_x * dev_x + dev_y * dev_y).amax(dim=1))
+    zm = torch.where(mask, z_cells, 0.0)
+    mx0 = xla_row_sum(zm * dev_x)
+    my0 = xla_row_sum(zm * dev_y)
+    zbar0 = agg.z_sum / torch.clamp(agg.count, min=1.0)
+    zd0 = torch.where(mask, (z_cells - zbar0[:, None]).abs(), 0.0).amax(dim=1)
+
+    n_levels = quadtree_level_count(grid.gx, grid.gy)
+    levels = []
+    nx, ny, step = grid.gx, grid.gy, 1
+    arrays = [a.reshape(ny, nx) for a in (agg.count, agg.z_sum, agg.cent_x, agg.cent_y, mx0, my0, e0, zd0)]
+    for level in range(n_levels):
+        cnt, zs, ctx, cty, mx, my, e, zd = arrays
+        nonempty = cnt > 0
+        levels.append(QuadtreeLevel(
+            nx, ny, step, cent_x=ctx.reshape(-1), cent_y=cty.reshape(-1), count=cnt.reshape(-1),
+            z_sum=zs.reshape(-1), mx=mx.reshape(-1), my=my.reshape(-1), e=e.reshape(-1), zd=zd.reshape(-1),
+            e_max=float(torch.where(nonempty, e, 0.0).max()), zd_max=float(torch.where(nonempty, zd, 0.0).max())))
+        if level == n_levels - 1:
+            break
+        ch = [[_pad_even(a, ny, nx)[oy::2, ox::2] for a in arrays] for oy, ox in ((0, 0), (0, 1), (1, 0), (1, 1))]
+        nx, ny, step = (nx + 1) // 2, (ny + 1) // 2, step * 2
+        cnt = ((ch[0][0] + ch[1][0]) + ch[2][0]) + ch[3][0]
+        zs = ((ch[0][1] + ch[1][1]) + ch[2][1]) + ch[3][1]
+        denom = torch.clamp(cnt, min=1.0)
+        wsum_x = ((ch[0][0] * ch[0][2] + ch[1][0] * ch[1][2]) + ch[2][0] * ch[2][2]) + ch[3][0] * ch[3][2]
+        wsum_y = ((ch[0][0] * ch[0][3] + ch[1][0] * ch[1][3]) + ch[2][0] * ch[2][3]) + ch[3][0] * ch[3][3]
+        mid_x, mid_y = _node_centres(grid, nx, ny, step, dtype)
+        ctx = torch.where(cnt > 0, wsum_x / denom, mid_x)
+        cty = torch.where(cnt > 0, wsum_y / denom, mid_y)
+        mx = sum(c[4] + c[1] * (c[2] - ctx) for c in ch)
+        my = sum(c[5] + c[1] * (c[3] - cty) for c in ch)
+        zbar = zs / denom
+        e_terms, zd_terms = [], []
+        for c in ch:
+            dist = sqrt_rn((c[2] - ctx) ** 2 + (c[3] - cty) ** 2)
+            e_terms.append(torch.where(c[0] > 0, dist + c[6], 0.0))
+            zd_terms.append(torch.where(c[0] > 0, (c[1] / torch.clamp(c[0], min=1.0) - zbar).abs() + c[7], 0.0))
+        e = torch.maximum(torch.maximum(e_terms[0], e_terms[1]), torch.maximum(e_terms[2], e_terms[3]))
+        zd = torch.maximum(torch.maximum(zd_terms[0], zd_terms[1]), torch.maximum(zd_terms[2], zd_terms[3]))
+        arrays = [cnt, zs, ctx, cty, mx, my, e, zd]
+    return tuple(levels)

@@ -1,6 +1,6 @@
 """Execute: interpolate one query batch against a plan.  Counterpart of
-the ``tiled`` and ``grid`` (``phase2="exact"`` and ``"farfield"``) branches of
-``repro.engine.execute``.
+the ``tiled`` and ``grid`` (``phase2="exact"``, ``"farfield"`` and
+``"quadtree"``) branches of ``repro.engine.execute``.
 
 The grid path: Morton-sort the queries, split blocks at Morton seams,
 per-query safe radii from the plan's ``required_radius`` table, the
@@ -11,8 +11,11 @@ where a block's candidates fit the plan's capacity, and queries of
 overflowing blocks take the ring search's alpha.  Phase 2 is the exact sweep
 over all data (``csrc/weight.cu``) or, on a far-field plan, the near field
 swept exactly (``csrc/near.cu``) plus one aggregate term per far cell
-(``csrc/far.cu``), with blocks whose near field overflows the plan's
-capacity swept exactly instead.
+(``csrc/far.cu``), or, on a quadtree plan, the same near field plus one
+aggregate and dipole term per node that a Barnes-Hut walk of the cell
+quadtree closes (``csrc/far_node.cu``, one launch per level).  Blocks whose
+near field overflows the plan's capacity, or whose node table overflows a
+level's width, are swept exactly instead.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from repro_torch.kernels.aidw_grid import (
     gather_candidates_csr,
     phase1_alpha_from_candidates,
     phase2_far_aggregates,
+    phase2_far_nodes,
     phase2_near_weights,
     phase2_weights_full,
 )
@@ -146,6 +150,135 @@ def _near_field(plan: InterpolationPlan, cx_v, cy_v):
         cand_z=cand_z, need=need, num_tiles=num_tiles, rect_cells=(xhi - xlo + 1) * (yhi - ylo + 1))
 
 
+# (block, node) pairs one chunk of the quadtree walk holds at once: its
+# temporaries (gaps, masks, positions) stay near 40 bytes a pair, under 1 GiB
+_WALK_PAIRS = 1 << 24
+
+
+def _walk_level(plan: InterpolationPlan, lv: int, home, proc, tau, cell_min):
+    """One level of :func:`_quadtree_walk` for a chunk of blocks: returns
+    ``(tbl, n_closed, n_opened, n_proc, opened)``."""
+    grid = plan.grid
+    dev = tau.device
+    nx, ny, step, k_pad, _tile = plan.qt_levels[lv]
+    n_nodes = nx * ny
+    hxlo, hxhi, hylo, hyhi = home
+    nbc = hxlo.shape[0]
+    jx = torch.arange(nx, dtype=torch.int32, device=dev)
+    jy = torch.arange(ny, dtype=torch.int32, device=dev)
+    nxlo, nxhi = jx * step, ((jx + 1) * step).clamp(max=grid.gx) - 1
+    nylo, nyhi = jy * step, ((jy + 1) * step).clamp(max=grid.gy) - 1
+    gapx = torch.maximum(nxlo[None, :] - hxhi[:, None], hxlo[:, None] - nxhi[None, :]).clamp(min=0)
+    gapy = torch.maximum(nylo[None, :] - hyhi[:, None], hylo[:, None] - nyhi[None, :]).clamp(min=0)
+    gap = torch.maximum(gapy[:, :, None], gapx[:, None, :]).reshape(nbc, n_nodes)
+    cnt, e = plan.far[lv][2][:n_nodes], plan.far[lv][6][:n_nodes]
+    if proc is None:
+        proc = torch.ones((nbc, n_nodes), dtype=torch.bool, device=dev)
+    nonempty = (cnt > 0)[None, :]
+    far_enough = gap >= plan.farfield_radius + 1
+    if lv == 0:
+        closed = proc & far_enough & nonempty
+        opened = None
+        n_opened = torch.zeros((nbc,), dtype=torch.int32, device=dev)
+    else:
+        # the reference's product order: tau rounded to the data dtype, times
+        # (gap - 1), times cell_min
+        tight = e[None, :] <= tau * (gap - 1).to(tau.dtype) * cell_min
+        closed = proc & far_enough & tight & nonempty
+        opened = proc & nonempty & ~(far_enough & tight)
+        n_opened = opened.sum(dim=1, dtype=torch.int32)
+    n_proc = (proc & nonempty).sum(dim=1, dtype=torch.int32)
+    n_closed = closed.sum(dim=1, dtype=torch.int32)
+    # compact the closed ids, ascending, into the static-width table; every
+    # other (block, node) pair, and a closed node past k_pad, writes the dump
+    # column k_pad, the only index written twice, which is sliced away
+    pos = torch.cumsum(closed, dim=1, dtype=torch.int32) - 1
+    col = torch.where(closed, pos.clamp(max=k_pad), k_pad).long()
+    ids = torch.arange(n_nodes, dtype=torch.int32, device=dev).expand(nbc, n_nodes)
+    tbl = torch.full((nbc, k_pad + 1), n_nodes, dtype=torch.int32, device=dev)
+    tbl.scatter_(1, col, torch.where(closed, ids, n_nodes))
+    return tbl[:, :k_pad], n_closed, n_opened, n_proc, opened
+
+
+def _quadtree_walk(plan: InterpolationPlan, hxlo, hxhi, hylo, hyhi):
+    """Barnes-Hut walk over the plan's quadtree, one node table per level.
+
+    Per query block (home rectangle ``hxlo..hxhi x hylo..hyhi``, inclusive
+    cell coordinates) and level, from the top down, every processed node is
+    tested: it is CLOSED (one aggregate and dipole term) when its Chebyshev
+    cell gap from the home rectangle is at least ``radius + 1`` and its
+    dispersion fits the plan's opening ratio, ``e <= tau * (gap - 1) *
+    cell_min``; a processed nonempty node that fails is OPENED and its four
+    children are processed at the next finer level.  Level-0 cells are
+    closed on the gap test alone.  Empty nodes are neither.  Every far cell
+    is then counted by exactly one closed node, every near cell by none.
+
+    The walk is masked arithmetic over all ``(block, node)`` pairs, in
+    chunks of blocks of at most ``_WALK_PAIRS`` pairs at the finest level.
+    Returns per level ``(tbl (nb, k_pad) int32, n_closed, n_opened,
+    n_proc)`` (``(nb,)`` int32 each): the table holds each block's closed
+    ids in ascending order, pad slots the sentinel node ``nx * ny``;
+    ``n_closed > k_pad`` means the table overflowed and the block must take
+    the exact sweep.
+    """
+    grid = plan.grid
+    dtype = grid.pt_x.dtype
+    dev = hxlo.device
+    cell_min = torch.minimum(grid.cell_size[0], grid.cell_size[1]).to(dtype)
+    tau = torch.tensor(plan.qt_tau, dtype=dtype, device=dev)
+    home = [h.to(torch.int32) for h in (hxlo, hxhi, hylo, hyhi)]
+    nb, n_lv = hxlo.shape[0], len(plan.qt_levels)
+    step = max(1, _WALK_PAIRS // max(nx * ny for nx, ny, *_ in plan.qt_levels))
+    parts = [[] for _ in range(n_lv)]
+    for b0 in range(0, nb, step):
+        chunk = [h[b0:b0 + step] for h in home]
+        proc = None
+        for lv in range(n_lv - 1, -1, -1):
+            *out, opened = _walk_level(plan, lv, chunk, proc, tau, cell_min)
+            parts[lv].append(out)
+            if lv > 0:
+                nx_p = plan.qt_levels[lv][0]
+                nx, ny = plan.qt_levels[lv - 1][:2]
+                jx = torch.arange(nx, device=dev)
+                jy = torch.arange(ny, device=dev)
+                proc = opened[:, ((jy[:, None] // 2) * nx_p + jx[None, :] // 2).reshape(-1)]
+    return [tuple(torch.cat(p) for p in zip(*level)) for level in parts]
+
+
+def _phase2_quadtree(plan: InterpolationPlan, qx_v, qy_v, alpha_v, cx_v, cy_v):
+    """Quadtree far-field Phase 2 over the blocked view (DESIGN.md section 8).
+
+    The near field is the far-field arm's (``_near_field``, ``csrc/near.cu``);
+    beyond it :func:`_quadtree_walk` closes nodes level by level and one
+    ``csrc/far_node.cu`` launch per level adds each block's closed nodes,
+    level 0 first, to the near sums.  Returns ``(z (n_tot,), need (nb,),
+    overflow (nb,), closed (n_levels, nb), opened (nb,), processed (nb,))``:
+    ``overflow`` flags blocks whose near gather or any level's node table
+    was cut short, which the caller sweeps exactly instead.
+    """
+    r_zero = torch.zeros_like(cx_v)
+    home = block_rectangles(plan.grid, cx_v, cy_v, r_zero, plan.block_q)
+    near = _near_field(plan, cx_v, cy_v)
+    ah = alpha_v * 0.5
+    sw, swz, md_n, hz_n = phase2_near_weights(qx_v, qy_v, ah, near.cand_x, near.cand_y, near.cand_z,
+                                              near.num_tiles, block_q=plan.block_q, tile_d=plan.p2_block_d)
+    overflow = near.need > plan.p2_capacity
+    closed, opened_tot, proc_tot = [], 0, 0
+    for lv, (tbl, n_closed, n_opened, n_proc) in enumerate(_quadtree_walk(plan, *home)):
+        k_pad, tile = plan.qt_levels[lv][3:]
+        nt = ((n_closed.clamp(max=k_pad) + tile - 1) // tile).to(torch.int32)
+        sw_f, swz_f = phase2_far_nodes(qx_v, qy_v, ah, tbl, nt, plan.far[lv][:6], block_q=plan.block_q,
+                                       tile_d=tile)
+        sw = sw + sw_f
+        swz = swz + swz_f
+        overflow = overflow | (n_closed > k_pad)
+        closed.append(n_closed)
+        opened_tot = opened_tot + n_opened
+        proc_tot = proc_tot + n_proc
+    z = torch.where(md_n <= plan.params.exact_hit_eps, hz_n, swz / sw)
+    return z, near.need, overflow, torch.stack(closed), opened_tot, proc_tot
+
+
 def _phase2_exact_masked(plan: InterpolationPlan, qx_s, qy_s, alpha, over_q):
     """The masked exact Phase 2, the far-field plan's overflow arm: every
     ``block_q`` run (sorted layout) holding a flagged query gets the full
@@ -187,13 +320,19 @@ def _execute_grid(plan: InterpolationPlan, qx, qy):
     alpha_exact = adaptive_alpha(r_obs, plan.m, plan.area, params).to(qx.dtype)
     alpha = torch.where(over_q, alpha_exact, alpha_fast)
 
-    if plan.phase2 == "farfield":
+    if plan.phase2 in ("farfield", "quadtree"):
         # in the seam-split view (its rectangles must not straddle seams
         # either): alpha maps in through src, z back through dest; queries
-        # of blocks whose near field overflows take the masked exact sweep
+        # of blocks whose near field (or quadtree node table) overflows take
+        # the masked exact sweep
         alpha_v = alpha if lay.src is None else alpha[lay.src]
-        z_v, need2, rect_cells = _phase2_farfield(plan, lay.qx_v, lay.qy_v, alpha_v, lay.cx_v, lay.cy_v)
-        over2_v = (need2 > plan.p2_capacity).repeat_interleave(plan.block_q)
+        if plan.phase2 == "quadtree":
+            z_v, need2, over2_b, closed, opened_tot, proc_tot = _phase2_quadtree(
+                plan, lay.qx_v, lay.qy_v, alpha_v, lay.cx_v, lay.cy_v)
+        else:
+            z_v, need2, rect_cells = _phase2_farfield(plan, lay.qx_v, lay.qy_v, alpha_v, lay.cx_v, lay.cy_v)
+            over2_b = need2 > plan.p2_capacity
+        over2_v = over2_b.repeat_interleave(plan.block_q)
         z_near, over2_s = (z_v, over2_v) if lay.dest is None else (z_v[lay.dest], over2_v[lay.dest])
         z_full = _phase2_exact_masked(plan, lay.qx_s, lay.qy_s, alpha, over2_s)
         zhat = torch.where(over2_s, z_full, z_near)
@@ -225,14 +364,28 @@ def _execute_grid(plan: InterpolationPlan, qx, qy):
         "skipped_tile_fraction": 1.0 - torch.where(real_b, lay.num_tiles, 0).sum().to(torch.float32)
         / n_real_tiles,
     }
-    if plan.phase2 == "farfield":
+    if plan.phase2 in ("farfield", "quadtree"):
         n_real_b = real_b.sum().clamp(min=1).to(torch.float32)
+        bound = torch.tensor(plan.farfield_bound, dtype=zhat.dtype, device=zhat.device)
+        if plan.phase2 == "quadtree":
+            # far work per block: the closed nodes summed over the levels
+            per_level = torch.where(real_b[None, :], closed, 0).sum(dim=1).to(torch.float32)
+            stats.update({
+                "far_cells_mean": torch.where(real_b, closed.sum(dim=0), 0).sum().to(torch.float32) / n_real_b,
+                "cells_per_level": per_level / n_real_b,
+                "opened_fraction": torch.where(real_b, opened_tot, 0).sum().to(torch.float32)
+                / torch.where(real_b, proc_tot, 0).sum().clamp(min=1).to(torch.float32),
+                "quadtree_rtol_bound": bound,
+            })
+        else:
+            stats.update({
+                "far_cells_mean": torch.where(real_b, grid.n_cells - rect_cells, 0).sum().to(torch.float32)
+                / n_real_b,
+                "farfield_rtol_bound": bound,
+            })
         stats.update({
             "near_points_mean": torch.where(real_b, need2, 0).sum().to(torch.float32) / n_real_b,
-            "far_cells_mean": torch.where(real_b, grid.n_cells - rect_cells, 0).sum().to(torch.float32)
-            / n_real_b,
             "p2_overflow_queries": over2_s[:n].sum(),
-            "farfield_rtol_bound": torch.tensor(plan.farfield_bound, dtype=zhat.dtype, device=zhat.device),
         })
     return zhat[:n][inv], alpha[:n][inv], stats
 
@@ -318,7 +471,13 @@ def execute_with_stats(plan: InterpolationPlan, qx, qy):
     ``far_cells_mean`` (far cells per block), ``p2_overflow_queries``
     (queries whose block's near field overflowed ``p2_capacity`` and took the
     exact sweep) and ``farfield_rtol_bound`` (the plan's proved bound), each
-    counted over blocks holding a real query.
+    counted over blocks holding a real query.  A quadtree plan reports the
+    same near and overflow keys, with ``far_cells_mean`` the closed nodes
+    per block summed over the levels, plus ``cells_per_level`` (its split
+    by level, shape ``(n_levels,)``), ``opened_fraction`` (opened over
+    processed nonempty nodes: how deep the walk descends) and
+    ``quadtree_rtol_bound`` (the plan's proved bound); a block whose node
+    table overflows a level's width counts among ``p2_overflow_queries``.
     This entry syncs with the device to read ``overflow_queries``.
     """
     z, a, stats = _execute(plan, qx, qy)

@@ -25,7 +25,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 
 # library name -> its source; every library also includes the shared header
-SOURCES = {"knn": "knn.cu", "weight": "weight.cu", "near": "near.cu", "far": "far.cu"}
+SOURCES = {"knn": "knn.cu", "weight": "weight.cu", "near": "near.cu", "far": "far.cu", "far_node": "far_node.cu"}
 HEADERS = ("aidw_common.cuh",)
 
 NVCC_FLAGS = (
@@ -45,10 +45,11 @@ ENTRY_POINTS = {
        for t in ("f32", "f64")},
     **{f"aidw_near_weight_{t}": ("near", [_P] * 7 + [_I] * 5 + [_D] + [_P] * 5) for t in ("f32", "f64")},
     **{f"aidw_far_cell_{t}": ("far", [_P] * 10 + [_I] * 5 + [_D] + [_P] * 3) for t in ("f32", "f64")},
+    **{f"aidw_far_node_{t}": ("far_node", [_P] * 11 + [_I] * 6 + [_D] + [_P] * 3) for t in ("f32", "f64")},
 }
 
 # kernel name (the TPU kernel it replaces) -> launches since the last reset
-LAUNCHES = {"knn_soa": 0, "knn_skip": 0, "weight_soa": 0, "near_weight": 0, "far_cell": 0}
+LAUNCHES = {"knn_soa": 0, "knn_skip": 0, "weight_soa": 0, "near_weight": 0, "far_cell": 0, "far_node": 0}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -1,6 +1,5 @@
 """Grid-path kernel plumbing over a plan's CSR grid snapshot.  Counterpart
-of the exact-path and single-level far-field parts of
-``repro.kernels.aidw_grid``.
+of the exact-path and far-field parts of ``repro.kernels.aidw_grid``.
 
 * :func:`block_rectangles` - each query block's candidate rectangle (cell
   coords): the bbox of its home cells grown by the block's max safe radius.
@@ -23,6 +22,9 @@ of the exact-path and single-level far-field parts of
 * :func:`phase2_far_aggregates` - the far field, ``csrc/far.cu`` (the port of
   ``_far_cell_kernel``): one aggregate term per cell outside the block's near
   rectangle.
+* :func:`phase2_far_nodes` - one level of the quadtree far field,
+  ``csrc/far_node.cu`` (the port of ``_far_node_kernel``): one aggregate and
+  dipole term per closed node of each block's node table.
 
 Each kernel wrapper runs its plain version (beside it, tile by tile as the
 Pallas kernel sums) when given CPU tensors, and launches its kernel or
@@ -43,6 +45,7 @@ from repro_torch.kernels.aidw_tiled import _check_float, _on_card, _suffix, knn_
 
 _NEAR_THREADS = 256
 _FAR_THREADS = 256
+_FAR_NODE_THREADS = 256
 
 
 def block_rectangles(grid: UniformGrid, cx, cy, r_safe, block_q: int):
@@ -237,4 +240,72 @@ def phase2_far_aggregates(qx, qy, alpha_half, rects, far, *, block_q: int, tile_
              torch.cuda.current_stream(qx.device).cuda_stream)
     _build.check(err, "phase2_far_aggregates launch")
     _build.LAUNCHES["far_cell"] += 1
+    return sum_w, sum_wz
+
+
+def phase2_far_nodes_plain(qx, qy, alpha_half, tbl, num_tiles, nodes, *, block_q: int, tile_d: int):
+    """Plain version of :func:`phase2_far_nodes`: the kernel's arithmetic tile
+    by tile, each tile summed in the kernel's order (``run_sum``) and folded
+    into the running sums, a row left untouched past its tile count."""
+    fx, fy, fcnt, fzs, fmx, fmy = nodes
+    n = qx.shape[0]
+    nb, k_pad = tbl.shape
+    tiny = tiny_for(qx.dtype)
+    sum_w = torch.zeros((n,), dtype=qx.dtype, device=qx.device)
+    sum_wz = torch.zeros_like(sum_w)
+    qx3, qy3 = qx.reshape(nb, block_q, 1), qy.reshape(nb, block_q, 1)
+    ah3 = alpha_half.reshape(nb, block_q, 1)
+    ids_all = torch.where((tbl < 0) | (tbl >= fx.shape[0]), fx.shape[0] - 1, tbl).long()
+    steps = min(k_pad // tile_d, int(num_tiles.max()) if nb else 0)
+    for j in range(steps):
+        ids = ids_all[:, None, j * tile_d:(j + 1) * tile_d]
+        dqx = qx3 - fx[ids]
+        dqy = qy3 - fy[ids]
+        d2 = dqx * dqx + dqy * dqy
+        w = pow_weight(d2, ah3)
+        grad = (2.0 * ah3) * w / torch.clamp(d2, min=tiny)
+        dip = grad * (dqx * fmx[ids] + dqy * fmy[ids])
+        tile_w = run_sum((w * fcnt[ids]).reshape(n, tile_d))[:, 0]
+        tile_wz = run_sum((w * fzs[ids] + dip).reshape(n, tile_d))[:, 0]
+        live = (j < num_tiles).repeat_interleave(block_q)
+        sum_w = torch.where(live, sum_w + tile_w, sum_w)
+        sum_wz = torch.where(live, sum_wz + tile_wz, sum_wz)
+    return sum_w, sum_wz
+
+
+def phase2_far_nodes(qx, qy, alpha_half, tbl, num_tiles, nodes, *, block_q: int, tile_d: int):
+    """One quadtree level's far sweep over each block's closed-node table.
+
+    ``qx, qy, alpha_half (n,)`` with ``n = nb * block_q``; ``tbl (nb, k_pad)``
+    int32 node ids (pad slots hold the sentinel node's id ``n_nodes``; an id
+    outside ``[0, n_nodes]`` is read as the sentinel), ``k_pad % tile_d ==
+    0`` and ``tile_d % SUM_RUN == 0``; ``num_tiles (nb,)`` int32, row i walks
+    its first ``num_tiles[i]`` tiles; ``nodes`` the level's ``(n_nodes + 1,)``
+    arrays ``(cent_x, cent_y, count, z_sum, mx, my)``, the last entry the
+    sentinel node.  Returns ``(sum_w, sum_wz)``, ``(n,)`` each.
+    """
+    n = qx.shape[0]
+    nb, k_pad = tbl.shape
+    _check_blocks("phase2_far_nodes", n, block_q, nb)
+    n_nodes = nodes[0].shape[0] - 1 if nodes else -1
+    if (tile_d <= 0 or tile_d % SUM_RUN or k_pad % tile_d or len(nodes) != 6 or n_nodes < 0
+            or any(a.shape != (n_nodes + 1,) for a in nodes) or not (qy.shape == alpha_half.shape == qx.shape)
+            or num_tiles.shape != (nb,)):
+        raise ValueError(f"phase2_far_nodes: bad shapes q={tuple(qx.shape)} tbl={tuple(tbl.shape)} "
+                         f"nodes={[tuple(a.shape) for a in nodes]} num_tiles={tuple(num_tiles.shape)} "
+                         f"tile_d={tile_d}")
+    if not _on_card("phase2_far_nodes", qx, qy, alpha_half, tbl, num_tiles, *nodes):
+        return phase2_far_nodes_plain(qx, qy, alpha_half, tbl, num_tiles, nodes, block_q=block_q, tile_d=tile_d)
+    _check_float("phase2_far_nodes", qx, qy, alpha_half, *nodes)
+    for name, a in (("tbl", tbl), ("num_tiles", num_tiles)):
+        if a.dtype != torch.int32 or not a.is_contiguous():
+            raise ValueError(f"phase2_far_nodes: {name} must be a contiguous int32 tensor")
+    sum_w, sum_wz = torch.empty_like(qx), torch.empty_like(qx)
+    fn = _build.entry(f"aidw_far_node_{_suffix(qx.dtype)}")
+    err = fn(qx.data_ptr(), qy.data_ptr(), alpha_half.data_ptr(), tbl.data_ptr(), num_tiles.data_ptr(),
+             *(a.data_ptr() for a in nodes), n, block_q, k_pad, tile_d, n_nodes,
+             math.gcd(block_q, _FAR_NODE_THREADS), tiny_for(qx.dtype), sum_w.data_ptr(), sum_wz.data_ptr(),
+             torch.cuda.current_stream(qx.device).cuda_stream)
+    _build.check(err, "phase2_far_nodes launch")
+    _build.LAUNCHES["far_node"] += 1
     return sum_w, sum_wz

@@ -286,3 +286,65 @@ def test_ring_arm_runs_zero_iterations_when_inactive():
     assert iters == 0 and torch.isinf(best).all()
     _, iters = t_grid._ring_search(tg, _t(qx), _t(qy), 5, active=torch.arange(64) == 3)
     assert iters > 0
+
+
+def _ring_oracle(tg, qx, qy, k):
+    """numpy model of the ring search: per query, the k smallest squared
+    distances (rounded as the port rounds them, each product and sum once)
+    over the cells within Chebyshev distance r of its clamped home cell,
+    r = 0, 1, ... until ``best[k-1] <= (r cell_min)^2`` or ``r`` covers the
+    grid.  Returns ``(best (n, k), rings walked by each query)``."""
+    dtype = qx.dtype
+    m = tg.n_points
+    px, py = _np(tg.pt_x)[:m], _np(tg.pt_y)[:m]
+    cid = np.repeat(np.arange(tg.n_cells), _np(tg.counts).reshape(-1))
+    pcx, pcy = cid % tg.gx, cid // tg.gx
+    hcx, hcy = (_np(c) for c in t_grid.cell_of(tg, _t(qx), _t(qy)))
+    cell_min = dtype.type(min(_np(tg.cell_size)))
+    best, rings = np.zeros((qx.shape[0], k), dtype), np.zeros(qx.shape[0], int)
+    for q in range(qx.shape[0]):
+        ddx, ddy = qx[q] - px, qy[q] - py
+        d2 = ddx * ddx + ddy * ddy
+        cheb = np.maximum(np.abs(pcx - hcx[q]), np.abs(pcy - hcy[q]))
+        r_cover = max(hcx[q], tg.gx - 1 - hcx[q], hcy[q], tg.gy - 1 - hcy[q])
+        r = 0
+        while True:
+            kb = np.sort(np.concatenate([d2[cheb <= r], np.full(k, np.inf, dtype)]))[:k]
+            bound = dtype.type(r) * cell_min
+            if kb[k - 1] <= bound * bound or r >= r_cover:
+                break
+            r += 1
+        best[q], rings[q] = kb, r + 1
+    return best, rings
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("where", ["in_bbox", "far_out_of_bbox"])
+def test_ring_search_folds_whole_rings(where, dtype):
+    """The ring search folds a whole ring per step and syncs once per ring:
+    its k-best rows are the numpy model's bit for bit, and it reports the
+    rings the last query walked.  Against the JAX ``grid_knn``: within one
+    rounding of d^2, because XLA's CPU backend contracts ``dx*dx + dy*dy``
+    into a fused multiply-add inside its ``while_loop`` where the port (and
+    its CUDA kernels) round each product; in float32 the JAX rows are the
+    model's with that contraction, bit for bit."""
+    dx, dy, dz = _points(1500, 30, dtype, "clustered")
+    jg, tg = _grids(dx, dy, dz, dtype)
+    rng = np.random.default_rng(31)
+    q = rng.random((64, 2)) * (6.0 if where == "far_out_of_bbox" else 1.0) - (3.0 if where == "far_out_of_bbox" else 0)
+    qx, qy = q[:, 0].astype(dtype), q[:, 1].astype(dtype)
+    got, rings = t_grid._ring_search(tg, _t(qx), _t(qy), 10)
+    want, walked = _ring_oracle(tg, qx, qy, 10)
+    np.testing.assert_array_equal(_np(got), want)
+    assert rings == walked.max()
+    if where == "far_out_of_bbox":  # no ring bound is met: the walk covers the grid
+        assert rings == max(tg.gx, tg.gy)
+    np.testing.assert_array_equal(_np(t_grid.grid_knn(tg, _t(qx), _t(qy), 10)), want)
+    with _x64(dtype):
+        ref = np.asarray(j_grid.grid_knn(jg, jnp.asarray(qx), jnp.asarray(qy), 10))
+    np.testing.assert_allclose(_np(got), ref, rtol=2 * np.finfo(dtype).eps, atol=0)
+    if dtype == np.float32:
+        px, py = _np(tg.pt_x)[:tg.n_points], _np(tg.pt_y)[:tg.n_points]
+        ddx, ddy = (qx[:, None] - px[None]).astype(np.float64), (qy[:, None] - py[None]).astype(np.float64)
+        fused = (ddx * ddx + (ddy * ddy).astype(np.float32)).astype(np.float32)
+        assert np.array_equal(ref, np.sort(fused, axis=1)[:, :10]) or np.array_equal(ref, want)

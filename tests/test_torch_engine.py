@@ -253,8 +253,10 @@ def test_validations_and_unported_options():
     for bad in (dict(farfield_rtol=0.0), dict(farfield_rtol=-1e-3), dict(farfield_radius=0)):
         with pytest.raises(ValueError, match="farfield_r"):
             build_plan(*data, impl="grid", phase2="farfield", **bad, **kw)
-    with pytest.raises(NotImplementedError, match="A7"):
-        build_plan(*data, impl="grid", phase2="quadtree", **kw)
+    with pytest.raises(ValueError, match="quadtree"):
+        build_plan(*data, impl="tiled", phase2="quadtree", **kw)
+    with pytest.raises(ValueError, match="farfield_rtol"):
+        build_plan(*data, impl="grid", phase2="quadtree", farfield_rtol=0.0, **kw)
     with pytest.raises(NotImplementedError, match="A8"):
         build_plan(*data, layout="aoas", **kw)
     for bad in (dict(impl="bogus"), dict(pipeline="x"), dict(seam_level=9), dict(phase2="x"),

@@ -597,8 +597,10 @@ def test_farfield_validations():
         build_plan(dx, dy, dz, impl="grid", phase2="farfield", farfield_radius=0, **kw)
     with pytest.raises(ValueError, match="min_p2_capacity"):
         build_plan(dx, dy, dz, impl="grid", phase2="farfield", min_p2_capacity=0, **kw)
-    with pytest.raises(NotImplementedError, match="A7"):
-        build_plan(dx, dy, dz, impl="grid", phase2="quadtree", **kw)
+    with pytest.raises(ValueError, match="quadtree"):
+        build_plan(dx, dy, dz, impl="tiled", phase2="quadtree", **kw)
+    with pytest.raises(ValueError, match="farfield_rtol"):
+        build_plan(dx, dy, dz, impl="grid", phase2="quadtree", farfield_rtol=0.0, **kw)
     exact = build_plan(dx, dy, dz, impl="grid", **kw)
     assert exact.phase2 == "exact" and exact.far == () and exact.p2_capacity == 0
     with pytest.raises(ValueError, match="impl='grid'"):

@@ -251,7 +251,7 @@ def test_kernel_build_flags_and_interface():
     assert "arch=compute_90a,code=sm_90a" in cmd
     assert not any("fast_math" in c or "fast-math" in c for c in cmd)
     assert {"-O3", "-shared", "-fPIC"} <= set(cmd)
-    assert set(_build.SOURCES) == {"knn", "weight", "near", "far"}
+    assert set(_build.SOURCES) == {"knn", "weight", "near", "far", "far_node"}
     for name, (lib, argtypes) in _build.ENTRY_POINTS.items():
         assert lib in _build.SOURCES
         assert (_build.CSRC / _build.SOURCES[lib]).read_text().count(name.rsplit("_", 1)[0]) >= 1
