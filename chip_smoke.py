@@ -53,7 +53,25 @@ in order (a failed check raises, and the script exits nonzero):
     outside the data's box: its rings and time, r_obs against a float64
     brute force;
 19. B6 timed with CUDA events per level at the serving batch's shapes,
-    beside the quadtree, far-field and exact batch times of this run.
+    beside the quadtree, far-field and exact batch times of this run;
+20. (a) the paper's dense variants' kernels against their plain versions on
+    the card, float32 and float64, m = 2^20, 2,048 queries: B7 and B8
+    (``naive.cu``, SoA and AoaS), B9 and B10 (``knn.cu`` and ``weight.cu``
+    on AoaS) and B1 with ``nbins`` (the ``binned`` prefilter), alpha exactly
+    and z within 64 ulps, with controls that a weight pass dropping its
+    first tile and a k-best dropping the nearest point fail the check;
+21. (b) naive SoA, naive AoaS, tiled AoaS and tiled SoA give the same
+    alpha and z bits;
+22. (c) the golden fixture for naive SoA/AoaS and tiled AoaS, float32 and
+    float64;
+23. (d) the dense run of ``aidw-pod-1m``: the first serving batch (65,536
+    queries) through naive and tiled in SoA and AoaS and through ``binned``,
+    float32 and float64, each with its launch counts and wall time, sampled
+    queries held against a float64 brute-force reference (``binned``
+    against the error envelope of the reference's tests);
+24. (e) B7-B10 and B1 binned timed with CUDA events at that shape, float32
+    and float64, with their bounds, and the paper's comparison table (naive
+    vs tiled, SoA vs AoaS, float32 vs float64).
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Without a CUDA card,
@@ -94,6 +112,11 @@ PEAK_SFU = 132 * 16 * 1.98e9
 # instruction issue: 4 warp schedulers x 32 threads per SM per clock
 PEAK_ISSUE = 132 * 128 * 1.98e9
 
+# the binned prefilter's error envelope against the reference, from
+# tests/kernels/test_aidw_variants.py: mean and max relative z error, and
+# the share of queries whose alpha moves by more than ALPHA_SHIFT
+BINNED_MEAN, BINNED_MAX, ALPHA_SHIFT, ALPHA_SHIFT_SHARE = 1e-4, 2e-2, 0.05, 0.02
+
 KERNELS = {
     "knn_skip": dict(source="src/repro_torch/kernels/csrc/knn.cu",
                      replaces="src/repro/kernels/aidw_grid.py:168 _knn_kernel_skip"),
@@ -107,6 +130,16 @@ KERNELS = {
                      replaces="src/repro/kernels/aidw_grid.py:328 _far_cell_kernel"),
     "far_node": dict(source="src/repro_torch/kernels/csrc/far_node.cu",
                      replaces="src/repro/kernels/aidw_grid.py:396 _far_node_kernel"),
+    "naive_soa": dict(source="src/repro_torch/kernels/csrc/naive.cu",
+                      replaces="src/repro/kernels/aidw_naive.py:37 _naive_kernel_soa"),
+    "naive_aoas": dict(source="src/repro_torch/kernels/csrc/naive.cu",
+                       replaces="src/repro/kernels/aidw_naive.py:52 _naive_kernel_aoas"),
+    "knn_aoas": dict(source="src/repro_torch/kernels/csrc/knn.cu",
+                     replaces="src/repro/kernels/aidw_tiled.py:136 _knn_kernel_aoas"),
+    "weight_aoas": dict(source="src/repro_torch/kernels/csrc/weight.cu",
+                        replaces="src/repro/kernels/aidw_tiled.py:154 _weight_kernel_aoas"),
+    "knn_binned": dict(source="src/repro_torch/kernels/csrc/knn.cu",
+                       replaces="src/repro/kernels/aidw_tiled.py:39 _knn_kernel_soa (nbins > 0)"),
 }
 
 
@@ -257,7 +290,7 @@ def main():
     for line in _build.ptxas_report():
         print("  ptxas", line)
     cuobjdump = str(Path(_build.nvcc_path()).parent / "cuobjdump")
-    sass = inner_loop_sass(cuobjdump, paths["weight"], "_ZN4aidw13weight_kernelIfE")
+    sass = inner_loop_sass(cuobjdump, paths["weight"], "_ZN4aidw13weight_kernelIfLb0EE")
     if sass is None:
         print("  weight_kernel<float> SASS: no per-pair loop found; MUFU count not measured")
     else:
@@ -482,8 +515,8 @@ def main():
     # compare, and exp and log counted as one operation each
     flops = {"knn_skip": 6, "knn_soa": 6, "weight_soa": 13}
 
-    def bound(n_pairs, n_bytes, ops):
-        t_ops, t_bytes = n_pairs * ops / PEAK_FLOPS["float32"], n_bytes / PEAK_BYTES
+    def bound(n_pairs, n_bytes, ops, dtype="float32"):
+        t_ops, t_bytes = n_pairs * ops / PEAK_FLOPS[dtype], n_bytes / PEAK_BYTES
         return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
     rows_out = []
@@ -521,6 +554,11 @@ def main():
     rows_out += quadtree_phases(
         dev=dev, params=params, golden=golden, data=data, queries=queries, sync=sync, maxerr=maxerr,
         time_ms=time_ms, bound=bound, batches=batches, results=results, ff_walls=ff_walls)
+    del plan, plan_t, lay, batches, results
+    rows_out += dense_phases(
+        dev=dev, params=params, golden=golden, eps=eps, data=data, queries=queries, sync=sync, maxerr=maxerr,
+        time_ms=time_ms, bound=bound, z_tol=z_tol, b2_rtol=b2_rtol,
+        phase6_ms={r["name"]: r["ms"] for r in rows_out if r["name"] == "weight_soa"} | {"knn_soa_row": ms})
     print(f"  total {time.time() - t_start:.1f} s")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1197,6 +1235,289 @@ def quadtree_phases(*, dev, params, golden, data, queries, sync, maxerr, time_ms
                  max_abs_err=b6_err, ms=total_ms, plain_ms=total_plain, bound_ms=total_bound,
                  bound_by="operations" if bound_kinds == {"operations"} else "bytes",
                  library_ms=None)]
+
+
+def dense_phases(*, dev, params, golden, eps, data, queries, sync, maxerr, time_ms, bound, z_tol, b2_rtol,
+                 phase6_ms):
+    """Phases 20-24: the paper's dense variants on the card, naive and tiled
+    in SoA and AoaS, and the binned prefilter, with main's data and helpers.
+    Returns the B7-B10 and binned B1 rows of the kernels line."""
+    import torch
+
+    from repro_torch.core.aidw import aidw_reference
+    from repro_torch.core.layouts import coord_sentinel, soa_to_aoas
+    from repro_torch.engine import build_plan, execute
+    from repro_torch.engine.execute import binned_nbins
+    from repro_torch.kernels import _build
+    from repro_torch.kernels._common import alpha_from_best, sq_dist_tile
+    from repro_torch.kernels.aidw_naive import (
+        aidw_naive_aoas,
+        aidw_naive_aoas_plain,
+        aidw_naive_soa,
+        aidw_naive_soa_plain,
+    )
+    from repro_torch.kernels.aidw_tiled import (
+        knn_alpha,
+        knn_alpha_aoas,
+        knn_alpha_aoas_plain,
+        knn_alpha_plain,
+        weight_sweep,
+        weight_sweep_aoas,
+        weight_sweep_aoas_plain,
+        weight_sweep_plain,
+    )
+
+    f32, f64 = torch.float32, torch.float64
+    hit_eps = params.exact_hit_eps
+    block_d = 512  # the plans' default data tile
+    nbins = binned_nbins(params.k, block_d)
+    kw = dict(params=params, area=1.0, m_real=M_FULL)
+    variants = {  # (impl, layout) -> the kernels its path launches
+        ("naive", "soa"): {"naive_soa"}, ("naive", "aoas"): {"naive_aoas"},
+        ("tiled", "soa"): {"knn_soa", "weight_soa"}, ("tiled", "aoas"): {"knn_aoas", "weight_aoas"},
+        ("binned", "soa"): {"knn_binned", "weight_soa"},
+    }
+
+    def dtname(dtype):
+        return str(dtype).split(".")[1]
+
+    def padded(dtype):
+        dx, dy, dz = data(dtype)
+        pad = build_plan(dx, dy, dz, params=params, area=1.0, impl="tiled", block_d=block_d).data
+        return pad, soa_to_aoas(*pad)
+
+    def rel(k, p):
+        return float(((k - p) / p).abs().max())
+
+    def nearest_dropped_alpha(qx, qy, dx, dy):
+        # the control: a k-best that loses each query's nearest point
+        out = []
+        for s in range(0, qx.shape[0], 256):
+            d2 = sq_dist_tile(qx[s:s + 256, None], qy[s:s + 256, None], dx[None], dy[None])
+            best = torch.topk(d2, params.k + 1, dim=1, largest=False, sorted=True).values[:, 1:]
+            out.append(alpha_from_best(best, M_FULL, 1.0, params)[:, 0])
+        return torch.cat(out)
+
+    # ---------------------------------------- 20. (a) B7-B10, B1 binned vs plain
+    print("== 20. (a) dense kernels vs their plain versions: B7/B8 naive.cu, B9 knn.cu AoaS, B10 weight.cu "
+          f"AoaS, B1 binned (nbins {nbins}); m = 2^20, {N_CHECK} queries", flush=True)
+    t_phase = time.time()
+    errs, check_out = {}, {}
+    for dtype in (f32, f64):
+        name = dtname(dtype)
+        (dxp, dyp, dzp), aoas = padded(dtype)
+        qx, qy = (q[:N_CHECK].contiguous() for q in queries(*SERVING[0], dtype))
+        nk = dict(block_q=64, block_d=block_d, **kw)
+        z7, a7 = aidw_naive_soa(dxp, dyp, dzp, qx, qy, **nk)
+        z7p, a7p = aidw_naive_soa_plain(dxp, dyp, dzp, qx, qy, params=params, area=1.0, m_real=M_FULL,
+                                        block_d=block_d)
+        z8, a8 = aidw_naive_aoas(aoas, qx, qy, **nk)
+        z8p, a8p = aidw_naive_aoas_plain(aoas, qx, qy, params=params, area=1.0, m_real=M_FULL, block_d=block_d)
+        tk = dict(block_q=256, tile_d=block_d, **kw)
+        a9, a9p = knn_alpha_aoas(qx, qy, aoas, **tk), knn_alpha_aoas_plain(qx, qy, aoas, **tk)
+        z10 = weight_sweep_aoas(qx, qy, a9 * 0.5, aoas, tile_d=block_d, eps=hit_eps)
+        z10p = weight_sweep_aoas_plain(qx, qy, a9 * 0.5, aoas, tile_d=block_d, eps=hit_eps)
+        ab = knn_alpha(qx, qy, dxp[None], dyp[None], nbins=nbins, **tk)
+        abp = knn_alpha_plain(qx, qy, dxp[None], dyp[None], nbins=nbins, **tk)
+        sync()
+        for tag, a_k, a_p in (("B7 naive_soa alpha", a7, a7p), ("B8 naive_aoas alpha", a8, a8p),
+                              ("B9 knn_aoas alpha", a9, a9p), ("B1 knn_binned alpha", ab, abp)):
+            print(f"  {tag} {name}: bitwise equal to plain {torch.equal(a_k, a_p)} "
+                  f"(max err {maxerr(a_k, a_p):.3e})")
+            check(torch.equal(a_k, a_p), f"{tag} {name} equals its plain version exactly")
+        for tag, z_k, z_p in (("B7 naive_soa z", z7, z7p), ("B8 naive_aoas z", z8, z8p),
+                              ("B10 weight_aoas z", z10, z10p)):
+            report(f"{tag} {name} relative (bitwise {torch.equal(z_k, z_p)})", rel(z_k, z_p), b2_rtol(dtype))
+        # controls: a weight pass without its first tile, a k-best without the nearest point
+        sent = coord_sentinel(dtype, dev)
+        cut = aoas.clone()
+        cut[:block_d, :2] = sent
+        e_tile = rel(weight_sweep_aoas_plain(qx, qy, a9 * 0.5, cut, tile_d=block_d, eps=hit_eps), z10p)
+        e_tile_naive = rel(weight_sweep_plain(qx, qy, a7p * 0.5, cut[:, 0].contiguous(), cut[:, 1].contiguous(),
+                                              dzp, tile_d=block_d, eps=hit_eps), z7p)
+        a_ctrl = nearest_dropped_alpha(qx, qy, dxp, dyp)
+        moved = int((a_ctrl != a7p).sum())
+        print(f"  controls {name}: a weight pass without its first tile is off by {e_tile:.3e} (B10) and "
+              f"{e_tile_naive:.3e} (B7) relative; a k-best without the nearest point moves {moved} of "
+              f"{N_CHECK} alphas", flush=True)
+        check(e_tile > b2_rtol(dtype) and e_tile_naive > b2_rtol(dtype), "the z tolerance catches a lost tile")
+        check(moved > 0, "the exact alpha check catches a lost nearest point")
+        if dtype == f32:
+            errs = {"naive_soa": max(maxerr(z7, z7p), maxerr(a7, a7p)),
+                    "naive_aoas": max(maxerr(z8, z8p), maxerr(a8, a8p)),
+                    "knn_aoas": maxerr(a9, a9p), "weight_aoas": maxerr(z10, z10p), "knn_binned": maxerr(ab, abp)}
+        check_out[dtype] = (qx, qy, (dxp, dyp, dzp), aoas, {"naive_soa": (z7, a7), "naive_aoas": (z8, a8),
+                                                            "tiled_aoas": (z10, a9)})
+        del z7p, a7p, z8p, a8p, a9p, z10p, abp, cut
+    print(f"  phase 20: {time.time() - t_phase:.1f} s", flush=True)
+
+    # ---------------------------------------------- 21. (b) across variants
+    print("== 21. (b) the variants against each other on the card (same inputs as phase 20)", flush=True)
+    t_phase = time.time()
+    for dtype in (f32, f64):
+        qx, qy, (dxp, dyp, dzp), aoas, outs = check_out[dtype]
+        a1 = knn_alpha(qx, qy, dxp[None], dyp[None], block_q=256, tile_d=block_d, **kw)
+        z_ref, a_ref = weight_sweep(qx, qy, a1 * 0.5, dxp, dyp, dzp, tile_d=block_d, eps=hit_eps), a1
+        for tag, (z, a) in outs.items():
+            same_z = torch.equal(z, z_ref)
+            print(f"  {tag} {dtname(dtype)} vs tiled_soa: alpha bitwise {torch.equal(a, a_ref)}, z bitwise {same_z} "
+                  f"(relative {rel(z, z_ref):.3e})")
+            check(torch.equal(a, a_ref) and same_z, f"{tag} gives tiled_soa's bits ({dtname(dtype)})")
+    del check_out
+    print(f"  phase 21: {time.time() - t_phase:.1f} s", flush=True)
+
+    # ------------------------------------------------------- 22. (c) golden
+    print("== 22. (c) golden fixture, dense variants", flush=True)
+    t_phase = time.time()
+    gp = type(params)(k=int(golden["k"]), area=float(golden["area"]))
+    for dtype in (f32, f64):
+        for batch in ("uniform", "clustered"):
+            arr = [torch.as_tensor(golden[f"{batch}_{n}"]).to(dev, dtype) for n in ("dx", "dy", "dz", "qx", "qy")]
+            for impl, layout in (("naive", "soa"), ("naive", "aoas"), ("tiled", "aoas")):
+                plan = build_plan(*arr[:3], params=gp, area=gp.area, impl=impl, layout=layout, block_q=64,
+                                  block_d=128)
+                z, a = execute(plan, arr[3], arr[4])
+                ez = np.abs(z.cpu().double().numpy() - golden[f"{batch}_z"])
+                ea = np.abs(a.cpu().double().numpy() - golden[f"{batch}_alpha"])
+                tz = GOLDEN_ATOL + GOLDEN_RTOL * np.abs(golden[f"{batch}_z"])
+                ta = GOLDEN_ATOL + GOLDEN_RTOL * np.abs(golden[f"{batch}_alpha"])
+                tag = f"{impl}/{layout} {batch} {dtname(dtype)}"
+                print(f"  {tag}: max |dz| {ez.max():.3e}, max |dalpha| {ea.max():.3e}")
+                check(bool((ez <= tz).all() and (ea <= ta).all()), f"golden {tag}")
+    print(f"  phase 22: {time.time() - t_phase:.1f} s", flush=True)
+
+    # -------------------------------------------- 23. (d) aidw-pod-1m dense
+    n_q, seed = SERVING[0]
+    print(f"== 23. (d) dense run of aidw-pod-1m: clustered m = 2^20, k = 10, serving batch n={n_q} "
+          f"seed={seed}", flush=True)
+    t_phase = time.time()
+    qx64, qy64 = queries(n_q, seed, f64)
+    idx = torch.as_tensor(np.random.default_rng(seed).choice(n_q, N_SAMPLE, replace=False), device=dev)
+    d64 = data(f64)
+    zr, ar = [], []
+    for part in idx.split(128):
+        zz, aa = aidw_reference(*d64, qx64[part], qy64[part], params, area=1.0)
+        zr.append(zz)
+        ar.append(aa)
+    zr, ar = torch.cat(zr), torch.cat(ar)
+    zmax = float(d64[2].abs().max())
+    dense_launches, walls = {}, {}
+    for dtype in (f32, f64):
+        dd = data(dtype)
+        qx, qy = queries(n_q, seed, dtype)
+        for (impl, layout), own in variants.items():
+            tag = f"{impl}/{layout} {dtname(dtype)}"
+            sync()
+            t0 = time.time()
+            plan = build_plan(*dd, params=params, area=1.0, impl=impl, layout=layout)
+            sync()
+            plan_s = time.time() - t0
+            _build.reset_launch_counts()
+            sync()
+            t0 = time.time()
+            z, a = execute(plan, qx, qy)
+            sync()
+            wall = time.time() - t0
+            launched = dict(_build.LAUNCHES)
+            walls[impl, layout, dtype] = wall
+            for kname, count in launched.items():
+                dense_launches[kname] = dense_launches.get(kname, 0) + count
+            print(f"  {tag}: plan {plan_s} s, batch {wall} s ({n_q / wall} queries/s), block_q {plan.block_q}, "
+                  f"launches {{{', '.join(f'{k}: {v}' for k, v in launched.items() if v)}}}", flush=True)
+            check({k for k, v in launched.items() if v} == own, f"{tag} launches its own kernels and no others")
+            check(bool(torch.isfinite(z).all() and torch.isfinite(a).all()) and z.shape == (n_q,),
+                  f"{tag} finite outputs of shape ({n_q},)")
+            zs, as_ = z[idx].double(), a[idx].double()
+            if impl == "binned":
+                r = (zs - zr).abs() / (zr.abs() + 1e-9)
+                shift = float(((as_ - ar).abs() > ALPHA_SHIFT).double().mean())
+                print(f"  {tag} vs f64 reference: mean rel {float(r.mean()):.3e} (< {BINNED_MEAN}), max rel "
+                      f"{float(r.max()):.3e} (< {BINNED_MAX}), alpha shifted > {ALPHA_SHIFT}: {shift} "
+                      f"(< {ALPHA_SHIFT_SHARE}), max |dalpha| {maxerr(as_, ar):.3e}")
+                check(float(r.mean()) < BINNED_MEAN and float(r.max()) < BINNED_MAX and shift < ALPHA_SHIFT_SHARE,
+                      f"{tag} within the binned error envelope")
+            else:
+                report(f"{tag} z vs f64 reference", maxerr(zs, zr), z_tol(dtype, M_FULL, zmax))
+                report(f"{tag} alpha vs f64 reference", maxerr(as_, ar), 1e-5)
+            del plan, z, a
+    print(f"  phase 23: {time.time() - t_phase:.1f} s", flush=True)
+
+    # ---------------------------------------------------- 24. (e) timings
+    print(f"== 24. (e) dense kernel timings (CUDA events, n={n_q}, m=2^20)", flush=True)
+    t_phase = time.time()
+    n_pairs = n_q * M_FULL
+    sub = block_d // nbins
+    # operations, counted from the kernels' code: kNN 6 per pair (d^2 5, the
+    # k-th-best compare); weight 13 (d^2 5, max, mul, 2 adds, mul, compare,
+    # exp and log one each); naive both, 19 per pair over its two passes;
+    # binned 6 per pair (d^2 5, the bin-min compare) and one k-th-best
+    # compare per bin.  Bytes: each input read once (a point is 3 values in
+    # SoA, 4 in AoaS), each output written once.
+    ops = {"naive_soa": 19 * n_pairs, "naive_aoas": 19 * n_pairs, "knn_aoas": 6 * n_pairs,
+           "weight_aoas": 13 * n_pairs, "knn_binned": 6 * n_pairs + n_q * (M_FULL // sub),
+           "knn_soa": 6 * n_pairs, "weight_soa": 13 * n_pairs}
+    vals = {"naive_soa": (3 * M_FULL, 4 * n_q), "naive_aoas": (4 * M_FULL, 4 * n_q),
+            "knn_aoas": (4 * M_FULL, 3 * n_q), "weight_aoas": (4 * M_FULL, 4 * n_q),
+            "knn_binned": (2 * M_FULL, 3 * n_q), "knn_soa": (2 * M_FULL, 3 * n_q), "weight_soa": (3 * M_FULL, 4 * n_q)}
+    times, rows = {}, []
+    for dtype in (f32, f64):
+        name = dtname(dtype)
+        (dxp, dyp, dzp), aoas = padded(dtype)
+        qx, qy = queries(n_q, seed, dtype)
+        ah = torch.full_like(qx, 1.0)  # the sweep's cost does not depend on alpha
+        nk = dict(block_q=64, block_d=block_d, **kw)
+        tk = dict(block_q=256, tile_d=block_d, **kw)
+        calls = {
+            "naive_soa": (lambda: aidw_naive_soa(dxp, dyp, dzp, qx, qy, **nk),
+                          lambda: aidw_naive_soa_plain(dxp, dyp, dzp, qx, qy, params=params, area=1.0,
+                                                       m_real=M_FULL, block_d=block_d)),
+            "naive_aoas": (lambda: aidw_naive_aoas(aoas, qx, qy, **nk),
+                           lambda: aidw_naive_aoas_plain(aoas, qx, qy, params=params, area=1.0, m_real=M_FULL,
+                                                         block_d=block_d)),
+            "knn_aoas": (lambda: knn_alpha_aoas(qx, qy, aoas, **tk), lambda: knn_alpha_aoas_plain(qx, qy, aoas, **tk)),
+            "weight_aoas": (lambda: weight_sweep_aoas(qx, qy, ah, aoas, tile_d=block_d, eps=hit_eps),
+                            lambda: weight_sweep_aoas_plain(qx, qy, ah, aoas, tile_d=block_d, eps=hit_eps)),
+            "knn_binned": (lambda: knn_alpha(qx, qy, dxp[None], dyp[None], nbins=nbins, **tk),
+                           lambda: knn_alpha_plain(qx, qy, dxp[None], dyp[None], nbins=nbins, **tk)),
+            "knn_soa": (lambda: knn_alpha(qx, qy, dxp[None], dyp[None], **tk), None),
+            "weight_soa": (lambda: weight_sweep(qx, qy, ah, dxp, dyp, dzp, tile_d=block_d, eps=hit_eps), None),
+        }
+        for kname, (kern, plain) in calls.items():
+            # float64 launches take of the order of a second, and every kernel here ran in phase 23:
+            # one timed launch, no warm-up
+            ms = time_ms(kern, 3) if dtype == f32 else time_ms(kern, 1, warmup=0)
+            n_vals, q_vals = vals[kname]
+            bound_ms, bound_by = bound(ops[kname], (n_vals + q_vals) * dtype.itemsize, 1, name)
+            times[kname, dtype] = ms
+            line = f"  {kname} {name}: {ms} ms (bound {bound_ms} ms by {bound_by}"
+            if dtype == f32 and plain is not None:
+                plain_ms = time_ms(plain, 1, warmup=0)
+                line += f", plain {plain_ms} ms"
+                rows.append(dict(name=kname, route="cuda", **KERNELS[kname], launches=dense_launches[kname],
+                                 max_abs_err=errs[kname], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                 bound_by=bound_by, library_ms=None))
+            print(line + ")", flush=True)
+    print(f"  tiled SoA beside phase 6 (float32, this call): knn_soa {times['knn_soa', f32]} ms here, "
+          f"{phase6_ms['knn_soa_row']} ms in phase 6; weight_soa {times['weight_soa', f32]} ms here, "
+          f"{phase6_ms['weight_soa']} ms in phase 6")
+    table = {"naive SoA": ("naive_soa",), "naive AoaS": ("naive_aoas",), "tiled SoA": ("knn_soa", "weight_soa"),
+             "tiled AoaS": ("knn_aoas", "weight_aoas"), "binned SoA": ("knn_binned", "weight_soa")}
+    print("  the paper's comparison (kernel ms, CUDA events; batch s, host clock, phase 23):")
+    print("  | variant | f32 kernels ms | f64 kernels ms | f64 / f32 | f32 batch s | f64 batch s |")
+    tot = {}
+    for label, names in table.items():
+        for dtype in (f32, f64):
+            tot[label, dtype] = sum(times[k, dtype] for k in names)
+        impl, layout = label.split()
+        print(f"  | {label} | {tot[label, f32]} | {tot[label, f64]} | {tot[label, f64] / tot[label, f32]:.2f} | "
+              f"{walls[impl, layout.lower(), f32]} | {walls[impl, layout.lower(), f64]} |")
+    for dtype in (f32, f64):
+        print(f"  {dtname(dtype)}: naive / tiled SoA {tot['naive SoA', dtype] / tot['tiled SoA', dtype]:.3f}, "
+              f"AoaS {tot['naive AoaS', dtype] / tot['tiled AoaS', dtype]:.3f}; AoaS / SoA naive "
+              f"{tot['naive AoaS', dtype] / tot['naive SoA', dtype]:.3f}, tiled "
+              f"{tot['tiled AoaS', dtype] / tot['tiled SoA', dtype]:.3f}")
+    print(f"  phase 24: {time.time() - t_phase:.1f} s", flush=True)
+    return rows
 
 
 if __name__ == "__main__":

@@ -1,5 +1,12 @@
-"""Padding helpers shared by every padded layout (kernel streams, grid
-cells, plan data).  Counterpart of ``repro.core.layouts`` (SoA only)."""
+"""Data layouts and the padding helpers shared by every padded layout
+(kernel streams, grid cells, plan data).  Counterpart of
+``repro.core.layouts``.
+
+SoA  - three tensors ``x, y, z`` of shape ``(m,)``.
+AoaS - one ``(m, 4)`` tensor of aligned structs ``(x, y, z, 0)``: 16 bytes a
+       point in float32, 32 in float64, so a kernel loads a point as one
+       ``float4`` (two ``double2``).
+"""
 
 from __future__ import annotations
 
@@ -28,3 +35,15 @@ def pad_tail(x, n_pad: int):
     if n_pad == 0:
         return x
     return torch.cat([x, x[-1:].expand(n_pad)])
+
+
+def soa_to_aoas(x, y, z=None):
+    """Pack SoA tensors into a contiguous ``(m, 4)`` aligned-struct tensor
+    ``(x, y, z, 0)``; ``z`` defaults to 0."""
+    zeros = torch.zeros_like(x)
+    return torch.stack([x, y, zeros if z is None else z, zeros], dim=1).contiguous()
+
+
+def aoas_to_soa(a):
+    """Unpack an ``(m, 4)`` aligned-struct tensor into ``(x, y, z)``."""
+    return a[:, 0], a[:, 1], a[:, 2]

@@ -1,6 +1,11 @@
 """Execute: interpolate one query batch against a plan.  Counterpart of
-the ``tiled`` and ``grid`` (``phase2="exact"``, ``"farfield"`` and
-``"quadtree"``) branches of ``repro.engine.execute``.
+the ``naive``, ``tiled``, ``binned`` and ``grid`` (``phase2="exact"``,
+``"farfield"`` and ``"quadtree"``) branches of ``repro.engine.execute``.
+
+The dense impls run one kernel family over the whole padded data: ``naive``
+(``csrc/naive.cu``, both phases in one launch), ``tiled`` (``csrc/knn.cu``
+then ``csrc/weight.cu``), each in the SoA or AoaS layout, and ``binned``
+(``tiled`` SoA with the binned prefilter in ``knn.cu``).
 
 The grid path: Morton-sort the queries, split blocks at Morton seams,
 per-query safe radii from the plan's ``required_radius`` table, the
@@ -48,7 +53,8 @@ from repro_torch.kernels.aidw_grid import (
     phase2_near_weights,
     phase2_weights_full,
 )
-from repro_torch.kernels.aidw_tiled import aidw_tiled_soa
+from repro_torch.kernels.aidw_naive import aidw_naive_aoas, aidw_naive_soa
+from repro_torch.kernels.aidw_tiled import aidw_tiled_aoas, aidw_tiled_soa
 
 
 def _seam_split_layout(plan: InterpolationPlan, qx_s, qy_s, cx_s, cy_s):
@@ -390,12 +396,28 @@ def _execute_grid(plan: InterpolationPlan, qx, qy):
     return zhat[:n][inv], alpha[:n][inv], stats
 
 
+def binned_nbins(k: int, block_d: int) -> int:
+    """The binned prefilter's bins per tile: a power of two from 16 that
+    doubles while ``2 * nbins <= min(6 k, block_d // 4)`` (the JAX package's
+    rule, DESIGN.md section 3)."""
+    nbins = 16
+    while nbins * 2 <= min(6 * k, block_d // 4):
+        nbins *= 2
+    return nbins
+
+
 def _execute_dense(plan: InterpolationPlan, qx, qy):
     n = qx.shape[0]
-    dx, dy, dz = plan.data
-    z, a = aidw_tiled_soa(dx, dy, dz, pad_to(qx, plan.block_q, 0.0), pad_to(qy, plan.block_q, 0.0),
-                          params=plan.params, area=plan.area, m_real=plan.m,
-                          block_q=plan.block_q, block_d=plan.block_d)
+    qxp, qyp = pad_to(qx, plan.block_q, 0.0), pad_to(qy, plan.block_q, 0.0)
+    kw = dict(params=plan.params, area=plan.area, m_real=plan.m, block_q=plan.block_q, block_d=plan.block_d)
+    if plan.layout == "aoas":
+        run = aidw_naive_aoas if plan.impl == "naive" else aidw_tiled_aoas  # build_plan rejects the rest
+        z, a = run(*plan.data, qxp, qyp, **kw)
+    elif plan.impl == "naive":
+        z, a = aidw_naive_soa(*plan.data, qxp, qyp, **kw)
+    else:
+        nbins = binned_nbins(plan.params.k, plan.block_d) if plan.impl == "binned" else 0
+        z, a = aidw_tiled_soa(*plan.data, qxp, qyp, nbins=nbins, **kw)
     return z[:n], a[:n], {}
 
 

@@ -1,8 +1,10 @@
 """Plan construction: every shape and occupancy decision, made once per
-data set.  Counterpart of the ``tiled`` and ``grid`` (``phase2="exact"``,
-``"farfield"`` and ``"quadtree"``) branches of ``repro.engine.plan``.
+data set.  Counterpart of the ``naive``, ``tiled``, ``binned`` and ``grid``
+(``phase2="exact"``, ``"farfield"`` and ``"quadtree"``) branches of
+``repro.engine.plan``.
 
-A plan holds the sentinel-padded data rows and, for ``impl="grid"``, the
+A plan holds the sentinel-padded data rows (SoA, or one ``(m_pad, 4)``
+tensor of AoaS structs for ``layout="aoas"``) and, for ``impl="grid"``, the
 grid snapshot (:class:`UniformGrid` with its CSR arrays), the per-cell
 ``required_radius`` table, and a static candidate capacity chosen from the
 occupancy histogram, with its tile width, the Morton seam-split depth and
@@ -35,13 +37,13 @@ from repro_torch.core.grid import (
     required_radius_table,
     static_cell_radius,
 )
-from repro_torch.core.layouts import coord_sentinel, pad_to
+from repro_torch.core.layouts import coord_sentinel, pad_to, soa_to_aoas
 from repro_torch.errors import PathologicalGridWarning, UnprovableRtolWarning
 
 # impls of the JAX package that this port does not run yet -> ROADMAP item
-_NOT_PORTED = {
-    "naive": "A8", "binned": "A8", "fused": "A8", "tiled_v2": "A8", "idw": "A8", "chunked": "A8",
-}
+_NOT_PORTED = {"fused": "A8b", "tiled_v2": "A8b", "idw": "A8b", "chunked": "A8b"}
+# impls without an AoaS variant, as in the JAX package
+_SOA_ONLY = ("binned", "fused", "grid", "tiled_v2", "idw", "chunked")
 
 # A resolution is pathological when some cell needs a safe ring radius
 # beyond this (candidate rows then approach a full sweep); a well-sized grid
@@ -68,11 +70,13 @@ class InterpolationPlan:
     """Everything needed to interpolate any number of query batches.
 
     ``data`` is the sentinel-padded ``(dx, dy, dz)``, each ``(m_pad,)`` with
-    ``m_pad % block_d == 0``.  The grid fields are 0 / ``None`` for
-    ``impl="tiled"``.
+    ``m_pad % block_d == 0``, or for ``layout="aoas"`` the one tensor
+    ``(m_pad, 4)`` of ``(x, y, z, 0)`` structs.  The grid fields are 0 /
+    ``None`` for the dense impls.
     """
 
     impl: str
+    layout: str               # "soa" | "aoas" (naive and tiled only)
     params: AIDWParams
     area: float
     m: int                    # real (unpadded) data-point count
@@ -485,8 +489,12 @@ def build_plan(dx, dy, dz, *, params: AIDWParams = AIDWParams(), area: float | N
                device=None) -> InterpolationPlan:
     """Build an :class:`InterpolationPlan` from a data set and configuration.
 
-    ``impl``: "tiled" (the paper's shared-memory version) or "grid" (the
-    main path: grid-accelerated Phase 1, exact Phase 2).  ``grid=`` supplies
+    ``impl``: "naive" (the paper's version without shared memory; the plan
+    caps ``block_q`` at 64), "tiled" (the paper's shared-memory version),
+    "binned" (tiled with the approximate binned prefilter in Phase 1) or
+    "grid" (the main path: grid-accelerated Phase 1, exact Phase 2).
+    ``layout`` is "soa" or, for naive and tiled, "aoas" (the data packed as
+    ``(m_pad, 4)`` structs).  ``grid=`` supplies
     a prebuilt :class:`UniformGrid`; ``target_occupancy`` seeds the
     auto-resolution otherwise.  ``query_occupancy`` (grid) is the expected
     queries per cell of a serving batch that sizes the static candidate
@@ -510,15 +518,15 @@ def build_plan(dx, dy, dz, *, params: AIDWParams = AIDWParams(), area: float | N
     Data must be finite (``ValueError`` otherwise); non-finite queries are
     handled at execute time.
     """
-    valid_impls = ("tiled", "grid", *_NOT_PORTED)
+    valid_impls = ("naive", "tiled", "binned", "grid", *_NOT_PORTED)
     if impl not in valid_impls:
         raise ValueError(f"impl must be one of {valid_impls}, got {impl!r}")
-    if impl in _NOT_PORTED:
-        raise NotImplementedError(f"impl={impl!r} is not ported yet (ROADMAP item {_NOT_PORTED[impl]})")
     if layout not in ("soa", "aoas"):
         raise ValueError(layout)
-    if layout == "aoas":
-        raise NotImplementedError("layout='aoas' is not ported yet (ROADMAP item A8)")
+    if layout == "aoas" and impl in _SOA_ONLY:
+        raise ValueError(f"impl={impl!r} is SoA-only (not available for layout=aoas)")
+    if impl in _NOT_PORTED:
+        raise NotImplementedError(f"impl={impl!r} is not ported yet (ROADMAP item {_NOT_PORTED[impl]})")
     if grid is not None and impl != "grid":
         raise ValueError("grid= is only meaningful with impl='grid'")
     if pipeline not in ("prefetch", "dense"):
@@ -556,7 +564,7 @@ def build_plan(dx, dy, dz, *, params: AIDWParams = AIDWParams(), area: float | N
     if area is None:
         raise ValueError("plans require a static area; pass area= or set params.area")
     params = dataclasses.replace(params, alpha_levels=tuple(params.alpha_levels))
-    fields = dict(impl=impl, params=params, area=float(area), m=m, block_q=block_q,
+    fields = dict(impl=impl, layout=layout, params=params, area=float(area), m=m, block_q=block_q,
                   block_d=block_d, cand_capacity=0, cand_block_d=0, grid_rebuilds=0,
                   seam_level=0, pipeline=pipeline, phase2=phase2, farfield_rtol=float(farfield_rtol),
                   farfield_radius=0, farfield_bound=0.0, p2_capacity=0, p2_block_d=0, p2_far_block_d=0,
@@ -568,7 +576,10 @@ def build_plan(dx, dy, dz, *, params: AIDWParams = AIDWParams(), area: float | N
                                  phase2=phase2, farfield_rtol=float(farfield_rtol),
                                  farfield_radius=farfield_radius, min_p2_capacity=min_p2_capacity))
     else:
-        fields.update(data=_pad_data(dx, dy, dz, block_d))
+        if impl == "naive":
+            fields["block_q"] = min(block_q, 64)
+        data = _pad_data(dx, dy, dz, block_d)
+        fields.update(data=(soa_to_aoas(*data),) if layout == "aoas" else data)
     return InterpolationPlan(**fields)
 
 
@@ -582,14 +593,16 @@ def plan_from_reference(statics: dict, arrays: dict, device=None) -> Interpolati
     """The port's plan from a JAX plan's exported state: the state carried
     across, as weights are carried across for a model.
 
-    ``arrays`` (numpy): the padded data rows ``dx, dy, dz`` and, for a grid
+    ``arrays`` (numpy): the padded data rows ``dx, dy, dz`` (for
+    ``layout="aoas"`` instead the padded ``(m_pad, 4)`` structs ``data``) and, for a grid
     plan, ``origin, cell_size, counts, cum, starts, pt_x, pt_y, pt_z`` and
     ``r_need``; for a far-field plan also the padded cell aggregates
     ``far_cent_x, far_cent_y, far_count, far_z_sum, far_ix, far_iy``; for a
     quadtree plan, per level ``lv`` (0 the cells), the node arrays with their
     appended sentinel node ``qt{lv}_cent_x, qt{lv}_cent_y, qt{lv}_count,
     qt{lv}_z_sum, qt{lv}_mx, qt{lv}_my, qt{lv}_e``.
-    ``statics``: ``impl`` ("grid" or "tiled"), ``m``, ``area``, ``params``
+    ``statics``: ``impl`` ("grid", "naive", "tiled" or "binned"), ``layout``
+    ("soa", the default, or "aoas"), ``m``, ``area``, ``params``
     (an :class:`AIDWParams` or a dict of its fields), ``block_q``,
     ``block_d`` and, for a grid plan, ``cand_capacity``, ``cand_block_d``,
     ``seam_level``, ``pipeline`` and optionally ``grid_rebuilds``; for a
@@ -611,8 +624,11 @@ def plan_from_reference(statics: dict, arrays: dict, device=None) -> Interpolati
         params = AIDWParams(**params)
     params = dataclasses.replace(params, alpha_levels=tuple(params.alpha_levels))
     impl = statics.get("impl", "grid")
-    if impl not in ("grid", "tiled"):
+    layout = statics.get("layout", "soa")
+    if impl not in ("grid", "naive", "tiled", "binned"):
         raise NotImplementedError(f"impl={impl!r} is not ported yet")
+    if layout == "aoas" and impl in _SOA_ONLY:
+        raise ValueError(f"impl={impl!r} is SoA-only (not available for layout=aoas)")
     phase2 = statics.get("phase2", "exact")
     qt_levels = tuple(tuple(int(v) for v in lv) for lv in statics.get("qt_levels", ()))
     grid = r_need = None
@@ -628,8 +644,12 @@ def plan_from_reference(statics: dict, arrays: dict, device=None) -> Interpolati
                              counts, t("cum").to(torch.int32), t("pt_x"), t("pt_y"), t("pt_z"),
                              t("starts").to(torch.int32))
         r_need = t("r_need").to(torch.int32)
+    if layout == "aoas":
+        data = (t("data").reshape(-1, 4).contiguous(),)
+    else:
+        data = tuple(t(n).reshape(-1) for n in ("dx", "dy", "dz"))
     return InterpolationPlan(
-        impl=impl, params=params, area=float(statics["area"]), m=int(statics["m"]),
+        impl=impl, layout=layout, params=params, area=float(statics["area"]), m=int(statics["m"]),
         block_q=int(statics["block_q"]), block_d=int(statics["block_d"]),
         cand_capacity=int(statics.get("cand_capacity", 0)),
         cand_block_d=int(statics.get("cand_block_d", 0)),
@@ -640,4 +660,4 @@ def plan_from_reference(statics: dict, arrays: dict, device=None) -> Interpolati
         farfield_bound=float(statics.get("farfield_bound", 0.0)),
         p2_capacity=int(statics.get("p2_capacity", 0)), p2_block_d=int(statics.get("p2_block_d", 0)),
         p2_far_block_d=int(statics.get("p2_far_block_d", 0)), qt_tau=float(statics.get("qt_tau", 0.0)),
-        qt_levels=qt_levels, data=tuple(t(n).reshape(-1) for n in ("dx", "dy", "dz")), grid=grid, r_need=r_need, far=far)
+        qt_levels=qt_levels, data=data, grid=grid, r_need=r_need, far=far)

@@ -24,9 +24,10 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 
-# library name -> its source; every library also includes the shared header
-SOURCES = {"knn": "knn.cu", "weight": "weight.cu", "near": "near.cu", "far": "far.cu", "far_node": "far_node.cu"}
-HEADERS = ("aidw_common.cuh",)
+# library name -> its source; every library also includes the shared headers
+SOURCES = {"knn": "knn.cu", "weight": "weight.cu", "near": "near.cu", "far": "far.cu", "far_node": "far_node.cu",
+           "naive": "naive.cu"}
+HEADERS = ("aidw_common.cuh", "aoas.cuh")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -38,18 +39,22 @@ _I = ctypes.c_int
 _D = ctypes.c_double
 # extern "C" entry points: name -> (library, argtypes); all return cudaError_t
 ENTRY_POINTS = {
-    **{f"aidw_knn_alpha_{t}": ("knn", [_P, _P, _P, _P, ctypes.c_longlong, _P, _I, _I, _I, _I, _I, _I,
-                                      _D, _D, _D, _D, _D, _D, _D, _D, _D, _P, _P])
+    **{f"aidw_knn_alpha_{t}": ("knn", [_P, _P, _P, _P, ctypes.c_longlong, _P] + [_I] * 7 + [_D] * 9 + [_P, _P])
        for t in ("f32", "f64")},
+    **{f"aidw_knn_alpha_aoas_{t}": ("knn", [_P] * 3 + [_I] * 6 + [_D] * 9 + [_P, _P]) for t in ("f32", "f64")},
     **{f"aidw_weight_{t}": ("weight", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _D, _D, _P, _P])
        for t in ("f32", "f64")},
+    **{f"aidw_weight_aoas_{t}": ("weight", [_P] * 4 + [_I] * 4 + [_D, _D, _P, _P]) for t in ("f32", "f64")},
+    **{f"aidw_naive_soa_{t}": ("naive", [_P] * 5 + [_I] * 5 + [_D] * 11 + [_P] * 3) for t in ("f32", "f64")},
+    **{f"aidw_naive_aoas_{t}": ("naive", [_P] * 3 + [_I] * 5 + [_D] * 11 + [_P] * 3) for t in ("f32", "f64")},
     **{f"aidw_near_weight_{t}": ("near", [_P] * 7 + [_I] * 5 + [_D] + [_P] * 5) for t in ("f32", "f64")},
     **{f"aidw_far_cell_{t}": ("far", [_P] * 10 + [_I] * 5 + [_D] + [_P] * 3) for t in ("f32", "f64")},
     **{f"aidw_far_node_{t}": ("far_node", [_P] * 11 + [_I] * 6 + [_D] + [_P] * 3) for t in ("f32", "f64")},
 }
 
 # kernel name (the TPU kernel it replaces) -> launches since the last reset
-LAUNCHES = {"knn_soa": 0, "knn_skip": 0, "weight_soa": 0, "near_weight": 0, "far_cell": 0, "far_node": 0}
+LAUNCHES = {"knn_soa": 0, "knn_skip": 0, "weight_soa": 0, "near_weight": 0, "far_cell": 0, "far_node": 0,
+            "naive_soa": 0, "naive_aoas": 0, "knn_aoas": 0, "weight_aoas": 0, "knn_binned": 0}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

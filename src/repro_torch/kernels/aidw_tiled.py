@@ -1,13 +1,20 @@
-"""The paper's tiled AIDW (SoA): Phase 1 and Phase 2 as hand-written CUDA
-kernels, each with its plain PyTorch version beside it.
+"""The paper's tiled AIDW, SoA and AoaS: Phase 1 and Phase 2 as hand-written
+CUDA kernels, each with its plain PyTorch version beside it.
 
 * :func:`knn_alpha` - ``csrc/knn.cu``, the port of
   ``repro/kernels/aidw_tiled.py:_knn_kernel_soa`` and, with a tile table, of
   ``repro/kernels/aidw_grid.py:_knn_kernel_skip``.  Running k-best of d^2
-  over streamed tiles of a candidate row, then alpha (Eq. 2-6).
+  over streamed tiles of a candidate row, then alpha (Eq. 2-6); with
+  ``nbins > 0`` the approximate ``binned`` prefilter, which cuts each tile
+  to bin minima before the merge.
 * :func:`weight_sweep` - ``csrc/weight.cu``, the port of
   ``repro/kernels/aidw_tiled.py:_weight_kernel_soa``.  sum(w), sum(w z), the
   running min d^2 and its z, then z.
+* :func:`knn_alpha_aoas`, :func:`weight_sweep_aoas` - the same two sources
+  on the ``(m, 4)`` AoaS structs, the ports of
+  ``repro/kernels/aidw_tiled.py:_knn_kernel_aoas`` and ``_weight_kernel_aoas``.
+  Their plain versions take the struct columns and run the SoA plain
+  versions, so AoaS gives the SoA bits.
 
 A wrapper given CPU tensors runs the plain version (the CPU path); given
 CUDA tensors it launches the kernel or raises.  The plain versions compute
@@ -63,10 +70,32 @@ def _suffix(dtype) -> str:
     return "f32" if dtype == torch.float32 else "f64"
 
 
-def knn_alpha_plain(qx, qy, cand_x, cand_y, *, block_q: int, tile_d: int, num_tiles=None,
+def check_aoas(name: str, data) -> None:
+    """A kernel reads an AoaS point as one 16-byte float4 (two double2): the
+    tensor must be a contiguous ``(m, 4)`` whose base is aligned to a point."""
+    if data.dim() != 2 or data.shape[1] != 4 or not data.is_contiguous():
+        raise ValueError(f"{name}: AoaS data must be a contiguous (m, 4) tensor, got {tuple(data.shape)}")
+    if data.data_ptr() % (4 * data.element_size()):
+        raise ValueError(f"{name}: AoaS data must be aligned to {4 * data.element_size()} bytes")
+
+
+def aoas_columns(data):
+    """The x, y, z columns of ``(m, 4)`` structs as contiguous ``(m,)`` tensors."""
+    return tuple(data[:, c].contiguous() for c in range(3))
+
+
+def _alpha_consts(params: AIDWParams, area: float, m_real: int):
+    """The alpha chain's constants as the kernels take them (doubles)."""
+    return (expected_nn_distance(m_real, area), math.pi / params.r_max, float(params.r_min),
+            float(params.r_max), *(float(a) for a in params.alpha_levels))
+
+
+def knn_alpha_plain(qx, qy, cand_x, cand_y, *, block_q: int, tile_d: int, num_tiles=None, nbins: int = 0,
                     params: AIDWParams, area: float, m_real: int):
     """Plain version of :func:`knn_alpha`: the k-best folded tile by tile,
-    rows past their tile count left untouched."""
+    rows past their tile count left untouched; with ``nbins`` each tile is
+    first cut to the minima of its ``nbins`` runs of ``tile_d // nbins``
+    points."""
     n = qx.shape[0]
     rows, c_tot = cand_x.shape
     best = torch.full((n, params.k), math.inf, dtype=qx.dtype, device=qx.device)
@@ -84,6 +113,8 @@ def knn_alpha_plain(qx, qy, cand_x, cand_y, *, block_q: int, tile_d: int, num_ti
             d2 = sq_dist_tile(qx2, qy2, tx, ty)
         else:
             d2 = sq_dist_tile(qx2, qy2, tx[:, None, :], ty[:, None, :]).reshape(n, tile_d)
+        if nbins:
+            d2 = d2.reshape(n, nbins, tile_d // nbins).amin(dim=2)
         merged = merge_k_best(best, d2)
         if num_tiles is not None:
             live = (j < num_tiles).repeat_interleave(n // rows)
@@ -93,7 +124,7 @@ def knn_alpha_plain(qx, qy, cand_x, cand_y, *, block_q: int, tile_d: int, num_ti
     return alpha_from_best(best, m_real, area, params)[:, 0]
 
 
-def knn_alpha(qx, qy, cand_x, cand_y, *, block_q: int, tile_d: int, num_tiles=None,
+def knn_alpha(qx, qy, cand_x, cand_y, *, block_q: int, tile_d: int, num_tiles=None, nbins: int = 0,
               params: AIDWParams, area: float, m_real: int):
     """Phase 1: alpha ``(n,)`` of each query from its candidate row.
 
@@ -102,12 +133,17 @@ def knn_alpha(qx, qy, cand_x, cand_y, *, block_q: int, tile_d: int, num_tiles=No
     ``(n // block_q, c)`` (one candidate row per query block, the grid
     path), with ``c % tile_d == 0``.  ``num_tiles`` (int32, one per row)
     limits row i to its first ``num_tiles[i] * tile_d`` candidates.
+    ``nbins > 0`` (a divisor of ``tile_d``) is the approximate ``binned``
+    prefilter: only the minimum of each run of ``tile_d // nbins`` points
+    enters the k-best.
     """
     n = qx.shape[0]
     rows, c_tot = cand_x.shape
     if n % block_q or c_tot % tile_d or cand_y.shape != cand_x.shape:
         raise ValueError(f"knn_alpha: bad shapes n={n} block_q={block_q} cand={tuple(cand_x.shape)} "
                          f"tile_d={tile_d}")
+    if nbins < 0 or (nbins and tile_d % nbins):
+        raise ValueError(f"knn_alpha: nbins={nbins} must divide tile_d={tile_d}")
     if rows != 1 and rows * block_q != n:
         raise ValueError(f"knn_alpha: {rows} candidate rows for {n // block_q} query blocks")
     # one row is a shared data row, or the row of a batch of one query block
@@ -116,7 +152,7 @@ def knn_alpha(qx, qy, cand_x, cand_y, *, block_q: int, tile_d: int, num_tiles=No
     tensors = (qx, qy, cand_x, cand_y) + (() if num_tiles is None else (num_tiles,))
     if not _on_card("knn_alpha", *tensors):
         return knn_alpha_plain(qx, qy, cand_x, cand_y, block_q=block_q, tile_d=tile_d,
-                               num_tiles=num_tiles, params=params, area=area, m_real=m_real)
+                               num_tiles=num_tiles, nbins=nbins, params=params, area=area, m_real=m_real)
     _check_float("knn_alpha", qx, qy, cand_x, cand_y)
     if params.k not in SUPPORTED_K:
         raise ValueError(f"knn_alpha: the CUDA kernel is built for k in {SUPPORTED_K}, got {params.k}")
@@ -125,15 +161,13 @@ def knn_alpha(qx, qy, cand_x, cand_y, *, block_q: int, tile_d: int, num_tiles=No
         raise ValueError("knn_alpha: num_tiles must be a contiguous int32 tensor, one per row")
     alpha = torch.empty_like(qx)
     fn = _build.entry(f"aidw_knn_alpha_{_suffix(qx.dtype)}")
-    a1, a2, a3, a4, a5 = (float(a) for a in params.alpha_levels)
     err = fn(qx.data_ptr(), qy.data_ptr(), cand_x.data_ptr(), cand_y.data_ptr(),
              0 if rows == 1 else c_tot, None if num_tiles is None else num_tiles.data_ptr(),
-             n, block_q, c_tot, tile_d, params.k, math.gcd(block_q, _KNN_THREADS),
-             expected_nn_distance(m_real, area), math.pi / params.r_max,
-             float(params.r_min), float(params.r_max), a1, a2, a3, a4, a5,
-             alpha.data_ptr(), torch.cuda.current_stream(qx.device).cuda_stream)
+             n, block_q, c_tot, tile_d, nbins, params.k, math.gcd(block_q, _KNN_THREADS),
+             *_alpha_consts(params, area, m_real), alpha.data_ptr(),
+             torch.cuda.current_stream(qx.device).cuda_stream)
     _build.check(err, "knn_alpha launch")
-    _build.LAUNCHES["knn_soa" if num_tiles is None else "knn_skip"] += 1
+    _build.LAUNCHES["knn_binned" if nbins else "knn_soa" if num_tiles is None else "knn_skip"] += 1
     return alpha
 
 
@@ -180,11 +214,85 @@ def weight_sweep(qx, qy, alpha_half, dx, dy, dz, *, tile_d: int, eps: float):
 
 
 def aidw_tiled_soa(dx, dy, dz, qx, qy, *, params: AIDWParams, area: float, m_real: int,
-                   block_q: int = 256, block_d: int = 512):
+                   block_q: int = 256, block_d: int = 512, nbins: int = 0):
     """Both tiled passes.  Inputs pre-padded: ``qx, qy (n,)`` with
     ``n % block_q == 0``; ``dx, dy, dz (m,)`` with ``m % block_d == 0``.
+    ``nbins > 0`` takes the approximate binned prefilter in Phase 1.
     Returns ``(z_hat, alpha)``, shape ``(n,)`` each."""
-    alpha = knn_alpha(qx, qy, dx[None, :], dy[None, :], block_q=block_q, tile_d=block_d,
+    alpha = knn_alpha(qx, qy, dx[None, :], dy[None, :], block_q=block_q, tile_d=block_d, nbins=nbins,
                       params=params, area=area, m_real=m_real)
     z = weight_sweep(qx, qy, alpha * 0.5, dx, dy, dz, tile_d=block_d, eps=params.exact_hit_eps)
+    return z, alpha
+
+
+# ------------------------------------------------------------ AoaS family
+def knn_alpha_aoas_plain(qx, qy, data, *, block_q: int, tile_d: int, params: AIDWParams, area: float,
+                         m_real: int):
+    """Plain version of :func:`knn_alpha_aoas`: the SoA plain version on the
+    struct columns."""
+    dx, dy, _ = aoas_columns(data)
+    return knn_alpha_plain(qx, qy, dx[None], dy[None], block_q=block_q, tile_d=tile_d, params=params,
+                           area=area, m_real=m_real)
+
+
+def knn_alpha_aoas(qx, qy, data, *, block_q: int, tile_d: int, params: AIDWParams, area: float, m_real: int):
+    """Phase 1 on the AoaS layout: alpha ``(n,)`` of each query from the
+    shared ``(m, 4)`` data structs, ``n % block_q == 0``, ``m % tile_d == 0``."""
+    n, m = qx.shape[0], data.shape[0]
+    if n % block_q or data.dim() != 2 or m % tile_d or qy.shape != qx.shape:
+        raise ValueError(f"knn_alpha_aoas: bad shapes n={n} block_q={block_q} data={tuple(data.shape)} "
+                         f"tile_d={tile_d}")
+    if not _on_card("knn_alpha_aoas", qx, qy, data):
+        return knn_alpha_aoas_plain(qx, qy, data, block_q=block_q, tile_d=tile_d, params=params, area=area,
+                                    m_real=m_real)
+    _check_float("knn_alpha_aoas", qx, qy, data)
+    check_aoas("knn_alpha_aoas", data)
+    if params.k not in SUPPORTED_K:
+        raise ValueError(f"knn_alpha_aoas: the CUDA kernel is built for k in {SUPPORTED_K}, got {params.k}")
+    alpha = torch.empty_like(qx)
+    fn = _build.entry(f"aidw_knn_alpha_aoas_{_suffix(qx.dtype)}")
+    err = fn(qx.data_ptr(), qy.data_ptr(), data.data_ptr(), n, block_q, m, tile_d, params.k,
+             math.gcd(block_q, _KNN_THREADS), *_alpha_consts(params, area, m_real), alpha.data_ptr(),
+             torch.cuda.current_stream(qx.device).cuda_stream)
+    _build.check(err, "knn_alpha_aoas launch")
+    _build.LAUNCHES["knn_aoas"] += 1
+    return alpha
+
+
+def weight_sweep_aoas_plain(qx, qy, alpha_half, data, *, tile_d: int, eps: float):
+    """Plain version of :func:`weight_sweep_aoas`: the SoA plain version on
+    the struct columns."""
+    return weight_sweep_plain(qx, qy, alpha_half, *aoas_columns(data), tile_d=tile_d, eps=eps)
+
+
+def weight_sweep_aoas(qx, qy, alpha_half, data, *, tile_d: int, eps: float):
+    """Exact Phase 2 on the AoaS layout: z ``(n,)`` of each query from the
+    ``(m, 4)`` sentinel-padded data structs, ``m % tile_d == 0``; summed in
+    :func:`weight_sweep`'s order."""
+    m = data.shape[0]
+    if data.dim() != 2 or m % tile_d or not (qy.shape == alpha_half.shape == qx.shape):
+        raise ValueError(f"weight_sweep_aoas: bad shapes q={tuple(qx.shape)} data={tuple(data.shape)} "
+                         f"tile_d={tile_d}")
+    if not _on_card("weight_sweep_aoas", qx, qy, alpha_half, data):
+        return weight_sweep_aoas_plain(qx, qy, alpha_half, data, tile_d=tile_d, eps=eps)
+    _check_float("weight_sweep_aoas", qx, qy, alpha_half, data)
+    check_aoas("weight_sweep_aoas", data)
+    out = torch.empty_like(qx)
+    fn = _build.entry(f"aidw_weight_aoas_{_suffix(qx.dtype)}")
+    err = fn(qx.data_ptr(), qy.data_ptr(), alpha_half.data_ptr(), data.data_ptr(), qx.shape[0], m, tile_d,
+             _WEIGHT_THREADS, float(eps), tiny_for(qx.dtype), out.data_ptr(),
+             torch.cuda.current_stream(qx.device).cuda_stream)
+    _build.check(err, "weight_sweep_aoas launch")
+    _build.LAUNCHES["weight_aoas"] += 1
+    return out
+
+
+def aidw_tiled_aoas(data, qx, qy, *, params: AIDWParams, area: float, m_real: int, block_q: int = 256,
+                    block_d: int = 512):
+    """Both tiled passes on the AoaS layout.  Inputs pre-padded: ``data
+    (m, 4)`` with ``m % block_d == 0``; ``qx, qy (n,)`` with
+    ``n % block_q == 0``.  Returns ``(z_hat, alpha)``, shape ``(n,)`` each."""
+    alpha = knn_alpha_aoas(qx, qy, data, block_q=block_q, tile_d=block_d, params=params, area=area,
+                           m_real=m_real)
+    z = weight_sweep_aoas(qx, qy, alpha * 0.5, data, tile_d=block_d, eps=params.exact_hit_eps)
     return z, alpha

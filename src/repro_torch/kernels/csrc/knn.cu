@@ -1,12 +1,15 @@
 // Phase 1 of AIDW: the k nearest squared distances of each query, then its
 // adaptive power alpha (Eq. 2-6).
 //
-// Replaces two TPU kernels:
+// Replaces four TPU kernels:
 //   src/repro/kernels/aidw_tiled.py:_knn_kernel_soa  (dense walk; the
-//     `tiled` impl's shared data row and the grid path's pipeline="dense")
+//     `tiled` impl's shared data row and the grid path's pipeline="dense";
+//     with nbins > 0 the `binned` prefilter)
 //   src/repro/kernels/aidw_grid.py:_knn_kernel_skip  (per-block tile table,
 //     the grid path's default pipeline="prefetch")
-// One source serves both.  Query q reads candidate row q / block_q (a row
+//   src/repro/kernels/aidw_tiled.py:_knn_kernel_aoas (the shared data row
+//     in the AoaS layout, `tiled` with layout="aoas")
+// One source serves all.  Query q reads candidate row q / block_q (a row
 // stride of 0 gives the `tiled` impl's single shared data row).  With a tile
 // table `nt`, row i walks only its first nt[i] * tile_d candidates; without
 // one it walks the whole row.  The skipped tail holds only sentinel points,
@@ -17,19 +20,29 @@
 // points (the paper's tiled kernel).  The k-best is a sorted register array
 // of compile-time size K, updated by a branch-free insertion with strict `<`
 // against the k-th best (duplicates kept, as merge_k_best keeps them).
+// AOAS stages each (x, y, z, 0) struct into the same sx, sy tiles with one
+// vector load, so the inner loop, and the bits, are the SoA ones.
+// BINNED (nbins > 0) cuts the row into bins of sub = tile_d / nbins
+// consecutive points (a bin is index / sub, since tiles start at multiples
+// of tile_d); each thread keeps its current bin's running minimum across
+// the staged chunks and inserts it into the k-best when the bin ends: the
+// k smallest bin minima, the multiset of JAX's merge_k_best(best,
+// bin_minima).
 //
 // What bounds it on an H100: the d^2 arithmetic (5 flops and one compare
 // per pair, 67 TFLOP/s f32, 34 TFLOP/s f64); the shared-memory reads are
 // broadcasts.  A candidate row is read once per CUDA block, not per query.
 #include "aidw_common.cuh"
+#include "aoas.cuh"
 
 namespace aidw {
 
-template <typename T, int K>
+// AOAS: cand_x is the (c_tot, 4) struct array and cand_y is unused.
+template <typename T, int K, bool AOAS, bool BINNED>
 __global__ void knn_alpha_kernel(const T* __restrict__ qx, const T* __restrict__ qy,
                                  const T* __restrict__ cand_x, const T* __restrict__ cand_y,
                                  long long row_stride, const int* __restrict__ nt, int block_q,
-                                 int c_tot, int tile_d, AlphaConsts<T> consts,
+                                 int c_tot, int tile_d, int sub, AlphaConsts<T> consts,
                                  T* __restrict__ alpha) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sx = reinterpret_cast<T*>(smem_raw);
@@ -52,16 +65,29 @@ __global__ void knn_alpha_kernel(const T* __restrict__ qx, const T* __restrict__
 #pragma unroll
   for (int j = 0; j < K; ++j) best[j] = T(INFINITY);
 
+  T bin_min = T(INFINITY);  // BINNED: the current bin's running minimum
+  int in_bin = 0;           // BINNED: points of the current bin seen so far
   for (int base = 0; base < len; base += blockDim.x) {
     const int idx = base + threadIdx.x;
     if (idx < len) {
-      sx[threadIdx.x] = rx[idx];
-      sy[threadIdx.x] = ry[idx];
+      if constexpr (AOAS) {
+        load_xy(rx, idx, sx[threadIdx.x], sy[threadIdx.x]);
+      } else {
+        sx[threadIdx.x] = rx[idx];
+        sy[threadIdx.x] = ry[idx];
+      }
     }
     __syncthreads();
     const int cnt = min(static_cast<int>(blockDim.x), len - base);
     for (int j = 0; j < cnt; ++j) {
       T v = sq_dist(px, py, sx[j], sy[j]);
+      if constexpr (BINNED) {
+        bin_min = v < bin_min ? v : bin_min;
+        if (++in_bin < sub) continue;
+        v = bin_min;
+        bin_min = T(INFINITY);
+        in_bin = 0;
+      }
       if (v < best[K - 1]) {
 #pragma unroll
         for (int s = 0; s < K; ++s) {
@@ -83,23 +109,34 @@ __global__ void knn_alpha_kernel(const T* __restrict__ qx, const T* __restrict__
   alpha[q] = alpha_from_r_obs(mul_rn(sum, T(1.0 / K)), consts);
 }
 
-template <typename T, int K>
+template <typename T, int K, bool AOAS>
 cudaError_t launch_k(const T* qx, const T* qy, const T* cx, const T* cy, long long row_stride,
-                     const int* nt, int n, int block_q, int c_tot, int tile_d, int threads,
-                     AlphaConsts<T> consts, T* alpha, cudaStream_t stream) {
+                     const int* nt, int n, int block_q, int c_tot, int tile_d, int nbins,
+                     int threads, AlphaConsts<T> consts, T* alpha, cudaStream_t stream) {
   const int blocks = n / threads;
   const size_t smem = 2 * static_cast<size_t>(threads) * sizeof(T);
-  knn_alpha_kernel<T, K><<<blocks, threads, smem, stream>>>(qx, qy, cx, cy, row_stride, nt, block_q,
-                                                            c_tot, tile_d, consts, alpha);
+  if (nbins > 0) {
+    if constexpr (AOAS) {
+      return cudaErrorInvalidValue;  // the binned prefilter is SoA-only, as in the reference
+    } else {
+      knn_alpha_kernel<T, K, false, true><<<blocks, threads, smem, stream>>>(
+          qx, qy, cx, cy, row_stride, nt, block_q, c_tot, tile_d, tile_d / nbins, consts, alpha);
+    }
+  } else {
+    knn_alpha_kernel<T, K, AOAS, false><<<blocks, threads, smem, stream>>>(
+        qx, qy, cx, cy, row_stride, nt, block_q, c_tot, tile_d, 0, consts, alpha);
+  }
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool AOAS>
 cudaError_t launch(const void* qx, const void* qy, const void* cx, const void* cy,
                    long long row_stride, const void* nt, int n, int block_q, int c_tot, int tile_d,
-                   int k, int threads, AlphaConsts<T> c, void* alpha, void* stream) {
+                   int nbins, int k, int threads, AlphaConsts<T> c, void* alpha, void* stream) {
   if (n <= 0) return cudaSuccess;
   if (threads <= 0 || threads > 1024 || n % threads != 0 || block_q % threads != 0)
+    return cudaErrorInvalidValue;
+  if (nbins < 0 || (nbins > 0 && (tile_d % nbins != 0 || c_tot % tile_d != 0)))
     return cudaErrorInvalidValue;
   const T* a = static_cast<const T*>(qx);
   const T* b = static_cast<const T*>(qy);
@@ -110,7 +147,8 @@ cudaError_t launch(const void* qx, const void* qy, const void* cx, const void* c
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define AIDW_K_CASE(KV) \
   case KV:              \
-    return launch_k<T, KV>(a, b, x, y, row_stride, t, n, block_q, c_tot, tile_d, threads, c, out, s);
+    return launch_k<T, KV, AOAS>(a, b, x, y, row_stride, t, n, block_q, c_tot, tile_d, nbins, threads, c, \
+                                 out, s);
   switch (k) {
     AIDW_K_CASE(5)
     AIDW_K_CASE(10)
@@ -125,20 +163,39 @@ cudaError_t launch(const void* qx, const void* qy, const void* cx, const void* c
 
 // alpha[q] for q < n.  qx, qy: (n,); cand_x, cand_y: rows of c_tot points,
 // row r at offset r * row_stride; nt: (n / block_q,) int32 tile counts or
-// NULL.  The alpha constants come as doubles and are rounded to the dtype.
+// NULL; nbins > 0 takes the binned prefilter's bin minima (nbins bins per
+// tile of tile_d points).  The alpha constants come as doubles and are
+// rounded to the dtype.
 #define AIDW_KNN_ENTRY(NAME, T)                                                                   \
   extern "C" cudaError_t NAME(const void* qx, const void* qy, const void* cand_x,                \
                               const void* cand_y, long long row_stride, const void* nt, int n,    \
-                              int block_q, int c_tot, int tile_d, int k, int threads,             \
+                              int block_q, int c_tot, int tile_d, int nbins, int k, int threads,  \
                               double r_exp, double pi_over_rmax, double r_min, double r_max,      \
                               double a1, double a2, double a3, double a4, double a5, void* alpha, \
                               void* stream) {                                                     \
-    return aidw::launch<T>(qx, qy, cand_x, cand_y, row_stride, nt, n, block_q, c_tot, tile_d, k,  \
-                           threads,                                                               \
-                           aidw::make_alpha_consts<T>(r_exp, pi_over_rmax, r_min, r_max, a1, a2,  \
-                                                      a3, a4, a5),                                \
-                           alpha, stream);                                                        \
+    return aidw::launch<T, false>(qx, qy, cand_x, cand_y, row_stride, nt, n, block_q, c_tot,      \
+                                  tile_d, nbins, k, threads,                                      \
+                                  aidw::make_alpha_consts<T>(r_exp, pi_over_rmax, r_min, r_max,   \
+                                                             a1, a2, a3, a4, a5),                 \
+                                  alpha, stream);                                                 \
   }
 
 AIDW_KNN_ENTRY(aidw_knn_alpha_f32, float)
 AIDW_KNN_ENTRY(aidw_knn_alpha_f64, double)
+
+// The AoaS twin on the shared data row: data is the (c_tot, 4) struct array.
+#define AIDW_KNN_AOAS_ENTRY(NAME, T)                                                              \
+  extern "C" cudaError_t NAME(const void* qx, const void* qy, const void* data, int n,           \
+                              int block_q, int c_tot, int tile_d, int k, int threads,             \
+                              double r_exp, double pi_over_rmax, double r_min, double r_max,      \
+                              double a1, double a2, double a3, double a4, double a5, void* alpha, \
+                              void* stream) {                                                     \
+    return aidw::launch<T, true>(qx, qy, data, nullptr, 0, nullptr, n, block_q, c_tot, tile_d, 0, \
+                                 k, threads,                                                      \
+                                 aidw::make_alpha_consts<T>(r_exp, pi_over_rmax, r_min, r_max,    \
+                                                            a1, a2, a3, a4, a5),                  \
+                                 alpha, stream);                                                  \
+  }
+
+AIDW_KNN_AOAS_ENTRY(aidw_knn_alpha_aoas_f32, float)
+AIDW_KNN_AOAS_ENTRY(aidw_knn_alpha_aoas_f64, double)

@@ -4,7 +4,11 @@
 //
 // Replaces src/repro/kernels/aidw_tiled.py:_weight_kernel_soa (launched by
 // aidw_tiled_soa for the `tiled` impl and by aidw_grid.py:phase2_weights_full
-// on the grid path).
+// on the grid path) and, with AOAS, src/repro/kernels/aidw_tiled.py:
+// _weight_kernel_aoas (launched by aidw_tiled_aoas, `tiled` with
+// layout="aoas"): the (m, 4) structs are staged into the same sx, sy, sz
+// tiles with one vector load a point, so the inner loop, and the bits, are
+// the SoA ones.
 //
 // Design: one thread per query; the data streams through shared memory in
 // tiles of tile_d points (the plan's block_d, the Pallas kernel's data
@@ -32,10 +36,12 @@
 // SASS).  Memory traffic is m points per CUDA block of queries, read from
 // L2 after the first block.
 #include "aidw_common.cuh"
+#include "aoas.cuh"
 
 namespace aidw {
 
-template <typename T>
+// AOAS: dx is the (m, 4) struct array and dy, dz are unused.
+template <typename T, bool AOAS>
 __global__ void weight_kernel(const T* __restrict__ qx, const T* __restrict__ qy,
                               const T* __restrict__ ah, const T* __restrict__ dx,
                               const T* __restrict__ dy, const T* __restrict__ dz, int n, int m,
@@ -55,9 +61,13 @@ __global__ void weight_kernel(const T* __restrict__ qx, const T* __restrict__ qy
   for (int base = 0; base < m; base += tile_d) {
     const int cnt = min(tile_d, m - base);
     for (int i = threadIdx.x; i < cnt; i += blockDim.x) {
-      sx[i] = dx[base + i];
-      sy[i] = dy[base + i];
-      sz[i] = dz[base + i];
+      if constexpr (AOAS) {
+        load_xyz(dx, base + i, sx[i], sy[i], sz[i]);
+      } else {
+        sx[i] = dx[base + i];
+        sy[i] = dy[base + i];
+        sz[i] = dz[base + i];
+      }
     }
     __syncthreads();
     T tile_w = T(0), tile_wz = T(0);
@@ -79,7 +89,7 @@ __global__ void weight_kernel(const T* __restrict__ qx, const T* __restrict__ qy
   if (live) out[q] = (min_d2 <= eps) ? hit_z : sum_wz / sum_w;
 }
 
-template <typename T>
+template <typename T, bool AOAS>
 cudaError_t launch(const void* qx, const void* qy, const void* ah, const void* dx, const void* dy,
                    const void* dz, int n, int m, int tile_d, int threads, double eps, double tiny,
                    void* out, void* stream) {
@@ -87,7 +97,7 @@ cudaError_t launch(const void* qx, const void* qy, const void* ah, const void* d
   const size_t smem = 3 * static_cast<size_t>(tile_d) * sizeof(T);
   if (threads <= 0 || threads > 1024 || tile_d <= 0 || smem > 48 * 1024) return cudaErrorInvalidValue;
   const int blocks = (n + threads - 1) / threads;
-  weight_kernel<T><<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  weight_kernel<T, AOAS><<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(qx), static_cast<const T*>(qy), static_cast<const T*>(ah),
       static_cast<const T*>(dx), static_cast<const T*>(dy), static_cast<const T*>(dz), n, m, tile_d,
       static_cast<T>(eps), static_cast<T>(tiny), static_cast<T*>(out));
@@ -103,8 +113,21 @@ cudaError_t launch(const void* qx, const void* qy, const void* ah, const void* d
   extern "C" cudaError_t NAME(const void* qx, const void* qy, const void* ah, const void* dx,   \
                               const void* dy, const void* dz, int n, int m, int tile_d,          \
                               int threads, double eps, double tiny, void* out, void* stream) {   \
-    return aidw::launch<T>(qx, qy, ah, dx, dy, dz, n, m, tile_d, threads, eps, tiny, out, stream); \
+    return aidw::launch<T, false>(qx, qy, ah, dx, dy, dz, n, m, tile_d, threads, eps, tiny, out,   \
+                                  stream);                                                        \
   }
 
 AIDW_WEIGHT_ENTRY(aidw_weight_f32, float)
 AIDW_WEIGHT_ENTRY(aidw_weight_f64, double)
+
+// The AoaS twin: data is the (m, 4) struct array.
+#define AIDW_WEIGHT_AOAS_ENTRY(NAME, T)                                                           \
+  extern "C" cudaError_t NAME(const void* qx, const void* qy, const void* ah, const void* data,  \
+                              int n, int m, int tile_d, int threads, double eps, double tiny,     \
+                              void* out, void* stream) {                                          \
+    return aidw::launch<T, true>(qx, qy, ah, data, nullptr, nullptr, n, m, tile_d, threads, eps,  \
+                                 tiny, out, stream);                                              \
+  }
+
+AIDW_WEIGHT_AOAS_ENTRY(aidw_weight_aoas_f32, float)
+AIDW_WEIGHT_AOAS_ENTRY(aidw_weight_aoas_f64, double)

@@ -247,7 +247,7 @@ def test_persistent_overflow_streak_and_warning():
 def test_validations_and_unported_options():
     data = _dataset("uniform", m=256)
     kw = dict(params=AIDWParams(**P), device="cpu")
-    for impl, item in (("naive", "A8"), ("fused", "A8"), ("chunked", "A8"), ("idw", "A8")):
+    for impl, item in (("tiled_v2", "A8b"), ("fused", "A8b"), ("chunked", "A8b"), ("idw", "A8b")):
         with pytest.raises(NotImplementedError, match=item):
             build_plan(*data, impl=impl, **kw)
     for bad in (dict(farfield_rtol=0.0), dict(farfield_rtol=-1e-3), dict(farfield_radius=0)):
@@ -257,8 +257,9 @@ def test_validations_and_unported_options():
         build_plan(*data, impl="tiled", phase2="quadtree", **kw)
     with pytest.raises(ValueError, match="farfield_rtol"):
         build_plan(*data, impl="grid", phase2="quadtree", farfield_rtol=0.0, **kw)
-    with pytest.raises(NotImplementedError, match="A8"):
-        build_plan(*data, layout="aoas", **kw)
+    for impl in ("binned", "grid", "fused", "tiled_v2", "idw", "chunked"):
+        with pytest.raises(ValueError, match="SoA-only"):
+            build_plan(*data, impl=impl, layout="aoas", **kw)
     for bad in (dict(impl="bogus"), dict(pipeline="x"), dict(seam_level=9), dict(phase2="x"),
                 dict(impl="tiled", phase2="farfield"), dict(layout="x")):
         with pytest.raises(ValueError):
@@ -282,5 +283,8 @@ def test_ops_aidw_matches_engine(impl):
     z2, a2 = execute(plan, qx, qy)
     np.testing.assert_array_equal(_np(z), _np(z2))
     np.testing.assert_array_equal(_np(a), _np(a2))
-    with pytest.raises(NotImplementedError):
-        aidw(*data, qx, qy, area=1.0, impl="naive", device="cpu")
+    for impl in ("fused", "tiled_v2", "idw", "chunked"):
+        with pytest.raises(NotImplementedError):
+            aidw(*data, qx, qy, area=1.0, impl=impl, device="cpu")
+    with pytest.raises(ValueError, match="SoA-only"):
+        aidw(*data, qx, qy, area=1.0, impl="binned", layout="aoas", device="cpu")
