@@ -71,7 +71,26 @@ in order (a failed check raises, and the script exits nonzero):
     against the error envelope of the reference's tests);
 24. (e) B7-B10 and B1 binned timed with CUDA events at that shape, float32
     and float64, with their bounds, and the paper's comparison table (naive
-    vs tiled, SoA vs AoaS, float32 vs float64).
+    vs tiled, SoA vs AoaS, float32 vs float64);
+25. the last three kernels against their plain versions on the card,
+    float32 and float64, m = 2^20, 2,048 queries: B11 (``fused.cu``), B12
+    (``knn.cu`` with the threshold-skip vote) and B13 (``weight.cu`` at one
+    alpha); alpha exactly, z within 64 ulps, merges equal, with controls
+    that a fused sweep without its first tile, a threshold-skip pass that
+    never merges after tile 0 and an IDW sweep at alpha / 2 + 1 ulp fail;
+26. bits on the card: fused equals tiled SoA, tiled_v2 alpha equals B1 and
+    its z B2 on it, idw equals ``weight_sweep`` at a filled alpha / 2; and
+    k = 7 through ``knn.cu``, ``naive.cu`` and ``fused.cu`` against the plain
+    versions;
+27. the golden fixture for fused, tiled_v2 and chunked (brute and grid),
+    float32 and float64;
+28. the first serving batch of ``aidw-pod-1m`` (65,536 queries, seed 1)
+    through fused, tiled_v2, idw (alpha = 2) and chunked (brute and grid),
+    each with its launches, wall time and stats (``merge_fraction``),
+    sampled queries held against a float64 brute-force reference (idw
+    against a float64 ``idw_reference``);
+29. B11-B13 timed with CUDA events at that shape, float32 and float64, with
+    their bounds.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Without a CUDA card,
@@ -140,6 +159,12 @@ KERNELS = {
                         replaces="src/repro/kernels/aidw_tiled.py:154 _weight_kernel_aoas"),
     "knn_binned": dict(source="src/repro_torch/kernels/csrc/knn.cu",
                        replaces="src/repro/kernels/aidw_tiled.py:39 _knn_kernel_soa (nbins > 0)"),
+    "fused": dict(source="src/repro_torch/kernels/csrc/fused.cu",
+                  replaces="src/repro/kernels/aidw_fused.py:40 _fused_kernel"),
+    "knn_v2": dict(source="src/repro_torch/kernels/csrc/knn.cu",
+                   replaces="src/repro/kernels/aidw_tiled_v2.py:38 _knn_kernel_v2"),
+    "idw": dict(source="src/repro_torch/kernels/csrc/weight.cu",
+                replaces="src/repro/kernels/idw_tiled.py:21 _idw_kernel"),
 }
 
 
@@ -287,10 +312,16 @@ def main():
     t0 = time.time()
     paths = _build.build_all()
     print(f"  built {sorted(p.name for p in paths.values())} in {time.time() - t0:.1f} s")
-    for line in _build.ptxas_report():
-        print("  ptxas", line)
+    # every K-templated kernel is instantiated for each k of AIDW_K_LIST: print
+    # the kernels without a k and the k = 7 and k = 10 instances, and a summary
+    entries = _build.ptxas_entries()
+    for src, name, regs, st, ld in entries:
+        if not re.search(r"Li\d+E", name) or re.search(r"Li(7|10)E", name):
+            print(f"  ptxas {src}: {name[:72]}: {regs} registers, spill stores {st} B, loads {ld} B")
+    print(f"  ptxas: {len(entries)} kernels, at most {max(e[2] for e in entries)} registers, "
+          f"{sum(e[3] + e[4] for e in entries)} spill bytes in all")
     cuobjdump = str(Path(_build.nvcc_path()).parent / "cuobjdump")
-    sass = inner_loop_sass(cuobjdump, paths["weight"], "_ZN4aidw13weight_kernelIfLb0EE")
+    sass = inner_loop_sass(cuobjdump, paths["weight"], "_ZN4aidw13weight_kernelIfLb0ELb0EE")
     if sass is None:
         print("  weight_kernel<float> SASS: no per-pair loop found; MUFU count not measured")
     else:
@@ -559,6 +590,9 @@ def main():
         dev=dev, params=params, golden=golden, eps=eps, data=data, queries=queries, sync=sync, maxerr=maxerr,
         time_ms=time_ms, bound=bound, z_tol=z_tol, b2_rtol=b2_rtol,
         phase6_ms={r["name"]: r["ms"] for r in rows_out if r["name"] == "weight_soa"} | {"knn_soa_row": ms})
+    rows_out += fused_v2_idw_phases(
+        dev=dev, params=params, golden=golden, data=data, queries=queries, sync=sync, maxerr=maxerr,
+        time_ms=time_ms, bound=bound, z_tol=z_tol, b2_rtol=b2_rtol)
     print(f"  total {time.time() - t_start:.1f} s")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1517,6 +1551,261 @@ def dense_phases(*, dev, params, golden, eps, data, queries, sync, maxerr, time_
               f"{tot['naive AoaS', dtype] / tot['naive SoA', dtype]:.3f}, tiled "
               f"{tot['tiled AoaS', dtype] / tot['tiled SoA', dtype]:.3f}")
     print(f"  phase 24: {time.time() - t_phase:.1f} s", flush=True)
+    return rows
+
+
+
+def fused_v2_idw_phases(*, dev, params, golden, data, queries, sync, maxerr, time_ms, bound, z_tol, b2_rtol):
+    """Phases 25-29: the ``fused``, ``tiled_v2``, ``idw`` and ``chunked``
+    impls on the card, with main's data and helpers.  Returns the B11-B13
+    rows of the kernels line."""
+    import torch
+
+    from repro_torch.core.aidw import aidw_reference
+    from repro_torch.core.idw import idw_reference
+    from repro_torch.core.layouts import coord_sentinel
+    from repro_torch.engine import build_plan, execute, execute_with_stats
+    from repro_torch.kernels import _build
+    from repro_torch.kernels._common import alpha_from_best, merge_k_best, sq_dist_tile
+    from repro_torch.kernels.aidw_fused import aidw_fused_soa, aidw_fused_soa_plain
+    from repro_torch.kernels.aidw_naive import aidw_naive_soa, aidw_naive_soa_plain
+    from repro_torch.kernels.aidw_tiled import knn_alpha, knn_alpha_plain, weight_sweep
+    from repro_torch.kernels.aidw_tiled_v2 import knn_alpha_v2, knn_alpha_v2_plain
+    from repro_torch.kernels.idw_tiled import idw_tiled_soa, idw_tiled_soa_plain
+
+    f32, f64 = torch.float32, torch.float64
+    hit_eps = params.exact_hit_eps
+    block_q, block_d = 256, 512  # the plans' defaults
+    idw_alpha = 2.0
+    kw = dict(params=params, area=1.0, m_real=M_FULL)
+
+    def dtname(dtype):
+        return str(dtype).split(".")[1]
+
+    def padded(dtype):
+        dx, dy, dz = data(dtype)
+        return build_plan(dx, dy, dz, params=params, area=1.0, impl="tiled", block_d=block_d).data
+
+    def rel(k, p):
+        return float(((k - p) / p).abs().max())
+
+    def tile0_alpha(qx, qy, dx, dy, p):
+        # the control: a threshold-skip pass that never merges after tile 0
+        best = torch.full((qx.shape[0], p.k), math.inf, dtype=qx.dtype, device=qx.device)
+        best = merge_k_best(best, sq_dist_tile(qx[:, None], qy[:, None], dx[None, :block_d], dy[None, :block_d]))
+        return alpha_from_best(best, M_FULL, 1.0, p)[:, 0]
+
+    # ---------------------------------------------- 25. B11-B13 vs plain
+    print(f"== 25. B11 fused.cu, B12 knn.cu threshold-skip, B13 weight.cu IDW vs their plain versions; m = 2^20, "
+          f"{N_CHECK} queries", flush=True)
+    t_phase = time.time()
+    errs, check_out = {}, {}
+    for dtype in (f32, f64):
+        name = dtname(dtype)
+        dxp, dyp, dzp = padded(dtype)
+        qx, qy = (q[:N_CHECK].contiguous() for q in queries(*SERVING[0], dtype))
+        fk = dict(block_q=block_q, block_d=block_d, **kw)
+        z11, a11 = aidw_fused_soa(dxp, dyp, dzp, qx, qy, **fk)
+        z11p, a11p = aidw_fused_soa_plain(dxp, dyp, dzp, qx, qy, **fk)
+        vk = dict(block_q=block_q, tile_d=block_d, **kw)
+        a12, m12 = knn_alpha_v2(qx, qy, dxp, dyp, **vk)
+        a12p, m12p = knn_alpha_v2_plain(qx, qy, dxp, dyp, **vk)
+        z13 = idw_tiled_soa(dxp, dyp, dzp, qx, qy, alpha=idw_alpha, exact_hit_eps=hit_eps, block_q=block_q,
+                            block_d=block_d)
+        z13p = idw_tiled_soa_plain(dxp, dyp, dzp, qx, qy, alpha=idw_alpha, exact_hit_eps=hit_eps, block_d=block_d)
+        half = torch.full_like(qx, idw_alpha * 0.5)
+        z13_b2 = weight_sweep(qx, qy, half, dxp, dyp, dzp, tile_d=block_d, eps=hit_eps)
+        z13_up = weight_sweep(qx, qy, torch.nextafter(half, torch.full_like(half, math.inf)), dxp, dyp, dzp,
+                              tile_d=block_d, eps=hit_eps)
+        sync()
+        for tag, a_k, a_p in (("B11 fused alpha", a11, a11p), ("B12 knn_v2 alpha", a12, a12p)):
+            print(f"  {tag} {name}: bitwise equal to plain {torch.equal(a_k, a_p)} (max err {maxerr(a_k, a_p):.3e})")
+            check(torch.equal(a_k, a_p), f"{tag} {name} equals its plain version exactly")
+        n_tiles = dxp.shape[0] // block_d
+        print(f"  B12 merges {name}: {m12.tolist()} of {n_tiles} tiles per block; equal to plain "
+              f"{torch.equal(m12, m12p)}")
+        check(torch.equal(m12, m12p), f"B12 {name} merges equal the plain version's")
+        for tag, z_k, z_p in (("B11 fused z", z11, z11p), ("B13 idw z", z13, z13p)):
+            report(f"{tag} {name} relative (bitwise {torch.equal(z_k, z_p)})", rel(z_k, z_p), b2_rtol(dtype))
+        check(torch.equal(z13, z13_b2), f"B13 {name} gives B2's bits at the filled alpha / 2")
+        # controls
+        sent = coord_sentinel(dtype, dev)
+        cut = torch.zeros_like(dxp, dtype=torch.bool)
+        cut[:block_d] = True
+        z_cut, _ = aidw_fused_soa_plain(torch.where(cut, sent, dxp), torch.where(cut, sent, dyp), dzp, qx, qy, **fk)
+        e_cut = rel(z_cut, z11p)
+        a_t0 = tile0_alpha(qx, qy, dxp, dyp, params)
+        moved = int((a_t0 != a12).sum())
+        idw_up_same = torch.equal(z13_up, z13)
+        print(f"  controls {name}: a fused sweep without its first tile is off by {e_cut:.3e} relative; a pass "
+              f"that never merges after tile 0 moves {moved} of {N_CHECK} alphas and counts "
+              f"{qx.shape[0] // block_q} merges against {int(m12.sum())}; a sweep at alpha / 2 + 1 ulp gives "
+              f"B13's bits: {idw_up_same} (relative {rel(z13_up, z13):.3e})", flush=True)
+        check(e_cut > b2_rtol(dtype), "the z tolerance catches a fused sweep that loses a tile")
+        check(moved > 0 and int(m12.sum()) > qx.shape[0] // block_q, "the exact checks catch a pass that stops merging")
+        check(not idw_up_same, "the bitwise check catches alpha / 2 one ulp off")
+        if dtype == f32:
+            errs = {"fused": max(maxerr(z11, z11p), maxerr(a11, a11p)), "knn_v2": maxerr(a12, a12p),
+                    "idw": maxerr(z13, z13p)}
+        check_out[dtype] = (qx, qy, (dxp, dyp, dzp), z11, a11, a12, m12, z13)
+        del z11p, a11p, a12p, z13p, z_cut
+    print(f"  phase 25: {time.time() - t_phase:.1f} s", flush=True)
+
+    # --------------------------------------------------- 26. bits on the card
+    print("== 26. bits on the card: fused == tiled SoA, tiled_v2 alpha == B1, idw == filled B2; k = 7", flush=True)
+    t_phase = time.time()
+    for dtype in (f32, f64):
+        qx, qy, (dxp, dyp, dzp), z11, a11, a12, m12, z13 = check_out[dtype]
+        a1 = knn_alpha(qx, qy, dxp[None], dyp[None], block_q=block_q, tile_d=block_d, **kw)
+        z2 = weight_sweep(qx, qy, a1 * 0.5, dxp, dyp, dzp, tile_d=block_d, eps=hit_eps)
+        same = {"fused alpha": torch.equal(a11, a1), "fused z": torch.equal(z11, z2),
+                "tiled_v2 alpha": torch.equal(a12, a1)}
+        print(f"  {dtname(dtype)}: {same}")
+        check(all(same.values()), f"fused and tiled_v2 give tiled SoA's bits ({dtname(dtype)})")
+        p7 = type(params)(k=7, area=1.0)
+        k7 = dict(params=p7, area=1.0, m_real=M_FULL)
+        a_k = knn_alpha(qx, qy, dxp[None], dyp[None], block_q=block_q, tile_d=block_d, **k7)
+        a_p = knn_alpha_plain(qx, qy, dxp[None], dyp[None], block_q=block_q, tile_d=block_d, **k7)
+        zn, an = aidw_naive_soa(dxp, dyp, dzp, qx, qy, block_q=64, block_d=block_d, **k7)
+        znp, anp = aidw_naive_soa_plain(dxp, dyp, dzp, qx, qy, block_d=block_d, **k7)
+        zf, af = aidw_fused_soa(dxp, dyp, dzp, qx, qy, block_q=block_q, block_d=block_d, **k7)
+        zfp, afp = aidw_fused_soa_plain(dxp, dyp, dzp, qx, qy, block_q=block_q, block_d=block_d, **k7)
+        sync()
+        k7_same = {"knn": torch.equal(a_k, a_p), "naive": torch.equal(an, anp), "fused": torch.equal(af, afp)}
+        print(f"  k = 7 {dtname(dtype)}: alpha bitwise equal to plain {k7_same}; z relative naive "
+              f"{rel(zn, znp):.3e}, fused {rel(zf, zfp):.3e}; k = 7 alpha differs from k = 10 at "
+              f"{int((a_k != a1).sum())} of {N_CHECK} queries")
+        check(all(k7_same.values()), f"k = 7 alpha equals the plain versions' ({dtname(dtype)})")
+        check(rel(zn, znp) <= b2_rtol(dtype) and rel(zf, zfp) <= b2_rtol(dtype), "k = 7 z within 64 ulps")
+        check(torch.equal(an, af) and torch.equal(zn, zf), "k = 7 naive and fused give the same bits")
+    del check_out
+    print(f"  phase 26: {time.time() - t_phase:.1f} s", flush=True)
+
+    # ------------------------------------------------------- 27. golden
+    print("== 27. golden fixture: fused, tiled_v2, chunked", flush=True)
+    t_phase = time.time()
+    gp = type(params)(k=int(golden["k"]), area=float(golden["area"]))
+    for dtype in (f32, f64):
+        for batch in ("uniform", "clustered"):
+            arr = [torch.as_tensor(golden[f"{batch}_{n}"]).to(dev, dtype) for n in ("dx", "dy", "dz", "qx", "qy")]
+            for impl, extra in (("fused", {}), ("tiled_v2", {}), ("chunked", dict(knn="brute")),
+                                ("chunked", dict(knn="grid"))):
+                plan = build_plan(*arr[:3], params=gp, area=gp.area, impl=impl, block_q=64, block_d=128, **extra)
+                z, a = execute(plan, arr[3], arr[4])
+                ez = np.abs(z.cpu().double().numpy() - golden[f"{batch}_z"])
+                ea = np.abs(a.cpu().double().numpy() - golden[f"{batch}_alpha"])
+                tz = GOLDEN_ATOL + GOLDEN_RTOL * np.abs(golden[f"{batch}_z"])
+                ta = GOLDEN_ATOL + GOLDEN_RTOL * np.abs(golden[f"{batch}_alpha"])
+                tag = f"{impl}{'/' + extra['knn'] if extra else ''} {batch} {dtname(dtype)}"
+                print(f"  {tag}: max |dz| {ez.max():.3e}, max |dalpha| {ea.max():.3e}")
+                check(bool((ez <= tz).all() and (ea <= ta).all()), f"golden {tag}")
+    print(f"  phase 27: {time.time() - t_phase:.1f} s", flush=True)
+
+    # ------------------------------------------ 28. aidw-pod-1m, the four impls
+    n_q, seed = SERVING[0]
+    print(f"== 28. aidw-pod-1m through fused, tiled_v2, idw (alpha = {idw_alpha}) and chunked: clustered m = 2^20, "
+          f"k = 10, serving batch n={n_q} seed={seed}, float32", flush=True)
+    t_phase = time.time()
+    qx64, qy64 = queries(n_q, seed, f64)
+    idx = torch.as_tensor(np.random.default_rng(seed).choice(n_q, N_SAMPLE, replace=False), device=dev)
+    d64 = data(f64)
+    zr, ar, zi = [], [], []
+    for part in idx.split(128):
+        zz, aa = aidw_reference(*d64, qx64[part], qy64[part], params, area=1.0)
+        zr.append(zz)
+        ar.append(aa)
+        zi.append(idw_reference(*d64, qx64[part], qy64[part], idw_alpha))
+    zr, ar, zi = torch.cat(zr), torch.cat(ar), torch.cat(zi)
+    zmax = float(d64[2].abs().max())
+    dd = data(f32)
+    qx, qy = queries(n_q, seed, f32)
+    paths = {"fused": ({}, {"fused"}), "tiled_v2": ({}, {"knn_v2", "weight_soa"}),
+             "idw": (dict(idw_alpha=idw_alpha), {"idw"}), "chunked/brute": (dict(knn="brute"), set()),
+             "chunked/grid": (dict(knn="grid"), set())}
+    launches = {}
+    for tag, (extra, own) in paths.items():
+        impl = tag.split("/")[0]
+        sync()
+        t0 = time.time()
+        plan = build_plan(*dd, params=params, area=1.0, impl=impl, **extra)
+        sync()
+        plan_s = time.time() - t0
+        _build.reset_launch_counts()
+        sync()
+        t0 = time.time()
+        z, a, stats = execute_with_stats(plan, qx, qy)
+        sync()
+        wall = time.time() - t0
+        launched = {k: v for k, v in _build.LAUNCHES.items() if v}
+        launches[tag] = launched
+        shown = {k: float(v) for k, v in stats.items()}
+        print(f"  {tag}: plan {plan_s} s, batch {wall} s ({n_q / wall} queries/s), launches {launched}, "
+              f"stats {shown}", flush=True)
+        check(set(launched) == own, f"{tag} launches its own kernels and no others")
+        check(bool(torch.isfinite(z).all() and torch.isfinite(a).all()) and z.shape == (n_q,),
+              f"{tag} finite outputs of shape ({n_q},)")
+        zs, as_ = z[idx].double(), a[idx].double()
+        if impl == "idw":
+            report(f"{tag} z vs f64 idw_reference", maxerr(zs, zi), z_tol(f32, M_FULL, zmax))
+            check(bool((a == idw_alpha).all()), "idw alpha is the constant")
+        else:
+            report(f"{tag} z vs f64 reference", maxerr(zs, zr), z_tol(f32, M_FULL, zmax))
+            report(f"{tag} alpha vs f64 reference", maxerr(as_, ar), 1e-5)
+        if impl == "tiled_v2":
+            check(0.0 < float(stats["merge_fraction"]) <= 1.0, "merge_fraction in (0, 1]")
+        del plan, z, a
+    print(f"  phase 28: {time.time() - t_phase:.1f} s", flush=True)
+
+    # ------------------------------------------------------- 29. timings
+    print(f"== 29. B11-B13 timings (CUDA events, n={n_q}, m=2^20)", flush=True)
+    t_phase = time.time()
+    n_pairs = n_q * M_FULL
+    # operations per pair, counted from the kernels' code: fused 6 (kNN: d^2
+    # 5, the k-th-best compare) + 13 (weight: d^2 5, max, mul, 2 adds, mul,
+    # compare, exp and log one each); the vote rides on the kNN compare; IDW
+    # 13.  Bytes: each input read once, each output written once (values;
+    # B12's merge votes are one byte per CUDA block and tile)
+    ops = {"fused": 19 * n_pairs, "knn_v2": 6 * n_pairs, "idw": 13 * n_pairs}
+    rows = []
+    for dtype in (f32, f64):
+        name = dtname(dtype)
+        dxp, dyp, dzp = padded(dtype)
+        qx, qy = queries(n_q, seed, dtype)
+        n_tiles = dxp.shape[0] // block_d
+        nbytes = {"fused": (3 * M_FULL + 4 * n_q) * dtype.itemsize,
+                  "knn_v2": (2 * M_FULL + 3 * n_q) * dtype.itemsize + (n_q // block_q) * n_tiles,
+                  "idw": (3 * M_FULL + 3 * n_q) * dtype.itemsize}
+        fk = dict(block_q=block_q, block_d=block_d, **kw)
+        vk = dict(block_q=block_q, tile_d=block_d, **kw)
+        ik = dict(alpha=idw_alpha, exact_hit_eps=hit_eps, block_d=block_d)
+        calls = {
+            "fused": (lambda: aidw_fused_soa(dxp, dyp, dzp, qx, qy, **fk),
+                      lambda: aidw_fused_soa_plain(dxp, dyp, dzp, qx, qy, **fk)),
+            "knn_v2": (lambda: knn_alpha_v2(qx, qy, dxp, dyp, **vk), lambda: knn_alpha_v2_plain(qx, qy, dxp, dyp, **vk)),
+            "idw": (lambda: idw_tiled_soa(dxp, dyp, dzp, qx, qy, block_q=block_q, **ik),
+                    lambda: idw_tiled_soa_plain(dxp, dyp, dzp, qx, qy, **ik)),
+        }
+        for kname, (kern, plain) in calls.items():
+            # float64 launches take of the order of a second: one timed launch after phase 28's
+            ms = time_ms(kern, 3) if dtype == f32 else time_ms(kern, 1)
+            bound_ms, bound_by = bound(ops[kname], nbytes[kname], 1, name)
+            line = f"  {kname} {name}: {ms} ms (bound {bound_ms} ms by {bound_by}"
+            if dtype == f32:
+                plain_ms = time_ms(plain, 1, warmup=0)
+                line += f", plain {plain_ms} ms"
+                rows.append(dict(name=kname, route="cuda", **KERNELS[kname],
+                                 launches=sum(v.get(kname, 0) for v in launches.values()), max_abs_err=errs[kname],
+                                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+            print(line + ")", flush=True)
+    # the per-pair weight loop of each float32 sweep, from the SASS (phase 1 reads B2's)
+    cuobjdump = str(Path(_build.nvcc_path()).parent / "cuobjdump")
+    for kname, lib, func in (("weight_soa", "weight", "_ZN4aidw13weight_kernelIfLb0ELb0EE"),
+                             ("idw", "weight", "_ZN4aidw13weight_kernelIfLb0ELb1EE"),
+                             ("fused", "fused", "_ZN4aidw12fused_kernelIfLi10EEE")):
+        sass = inner_loop_sass(cuobjdump, _build.library_path(lib), func)
+        print(f"  {kname} float32 SASS weight loop: " + ("not found" if sass is None else
+              f"{sass[0]} instructions per pair, MUFU per pair {sass[1]}"))
+    print(f"  phase 29: {time.time() - t_phase:.1f} s", flush=True)
     return rows
 
 

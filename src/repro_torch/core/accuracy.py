@@ -1,5 +1,5 @@
-"""Accuracy tooling: the Kahan-compensated oracle and the far-field error
-report.  Counterpart of ``repro.core.accuracy``.
+"""Accuracy tooling: the Kahan-compensated oracle, the far-field error
+report and the relative RMSE.  Counterpart of ``repro.core.accuracy``.
 
 The dominant float32 error of AIDW is the long accumulation of sum(w) and
 sum(w z) over m data points (w spans many orders of magnitude near the
@@ -63,6 +63,13 @@ def aidw_interpolate_kahan(dx, dy, dz, qx, qy, params: AIDWParams = AIDWParams()
         z_out.append(torch.where(min_d2 <= params.exact_hit_eps, hit_z, swz / sw))
         a_out.append(alpha)
     return torch.cat(z_out), torch.cat(a_out)
+
+
+def relative_rmse(approx, exact) -> float:
+    """RMS of ``approx - exact`` over RMS of ``exact``, in float64."""
+    a = torch.as_tensor(approx).double()
+    e = torch.as_tensor(exact, device=a.device).double()
+    return float((a - e).square().mean().sqrt() / e.square().mean().sqrt())
 
 
 # Floating-point slack separating the far-field model bound (exact

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.knn import running_k_best
-from repro_torch.core.layouts import coord_sentinel
+from repro_torch.core.layouts import coord_sentinel, pad_to
 
 # Default five decay levels a1..a5 (the paper does not publish its values).
 DEFAULT_ALPHA_LEVELS = (0.5, 1.0, 2.0, 3.0, 4.0)
@@ -147,3 +147,62 @@ def brute_r_obs(dx, dy, qx, qy, k: int, *, q_chunk: int = 1024, d_chunk: int = 4
             best = running_k_best(best, _sq_dists(qcx, qcy, tx, ty))
         out.append(mean_k(sqrt_rn(best)))
     return torch.cat(out)
+
+
+def _weight_sweep(dx, dy, dz, qx, qy, alpha_half, exact_hit_eps: float, *, q_chunk: int, d_chunk: int):
+    """The chunked weighted-average sweep (Eq. 1) over all m data points:
+    ``alpha_half`` is ``(n,)`` or a Python float.  Chunks of ``q_chunk``
+    queries against sentinel-padded tiles of ``d_chunk`` points; each tile's
+    sums are added to running sums, and the hit z is taken at the first
+    minimum with a strict ``<`` across tiles.  Returns z_hat ``(n,)``."""
+    n, dtype, dev = qx.shape[0], qx.dtype, qx.device
+    big = coord_sentinel(dtype, dev)
+    tiles = [pad_to(a, d_chunk, v).reshape(-1, d_chunk) for a, v in ((dx, big), (dy, big), (dz, 0.0))]
+    tiny = tiny_for(dtype)
+    out = []
+    for s in range(0, n, q_chunk):
+        qcx, qcy = qx[s:s + q_chunk], qy[s:s + q_chunk]
+        ah = alpha_half[s:s + q_chunk, None] if torch.is_tensor(alpha_half) else alpha_half
+        zeros = torch.zeros_like(qcx)
+        sum_w, sum_wz, hit_z = zeros, zeros, zeros
+        min_d2 = torch.full_like(qcx, math.inf)
+        for tx, ty, tz in zip(*tiles):
+            d2 = _sq_dists(qcx, qcy, tx, ty)
+            w = torch.exp(-ah * torch.log(torch.clamp(d2, min=tiny)))
+            tmin, arg = torch.min(d2, dim=1)
+            better = tmin < min_d2
+            sum_w = sum_w + w.sum(dim=1)
+            sum_wz = sum_wz + (w * tz[None, :]).sum(dim=1)
+            min_d2 = torch.where(better, tmin, min_d2)
+            hit_z = torch.where(better, tz[arg], hit_z)
+        out.append(torch.where(min_d2 <= exact_hit_eps, hit_z, sum_wz / sum_w))
+    return torch.cat(out) if out else torch.empty_like(qx)
+
+
+def _interpolate_pass2(dx, dy, dz, qx, qy, alpha, params: AIDWParams, *, q_chunk: int = 1024, d_chunk: int = 4096):
+    """Phase 2 of the ``chunked`` path: the chunked weighted-average sweep
+    with a precomputed per-query ``alpha``.  Shared by both knn paths, so
+    the Phase-2 numerics do not depend on how Phase 1 found the neighbours."""
+    return _weight_sweep(dx, dy, dz, qx, qy, alpha.to(qx.dtype) * 0.5, params.exact_hit_eps, q_chunk=q_chunk,
+                         d_chunk=d_chunk)
+
+
+def aidw_interpolate(dx, dy, dz, qx, qy, params: AIDWParams = AIDWParams(), *, area: float | None = None,
+                     q_chunk: int = 1024, d_chunk: int = 4096, knn: str = "brute", grid=None, device=None):
+    """Single-host AIDW in plain PyTorch with ``O(q_chunk * d_chunk)`` peak
+    memory: the two passes of the paper's kernels with the data axis tiled.
+    Returns ``(z_hat, alpha)``, shape ``(n,)`` each, on ``device`` (default
+    ``"cuda"``).
+
+    ``knn="grid"`` finds each query's k nearest with the uniform-grid ring
+    search of :mod:`repro_torch.core.grid` instead of the brute-force scan;
+    Phase 2 sweeps all m points either way.  A convenience over the engine
+    (``impl="chunked"``): each call builds a chunked plan; pass a prebuilt
+    ``grid=``, or hold the plan, to reuse it across batches."""
+    from repro_torch.engine import build_plan, execute  # lazy: core <-> engine
+
+    if knn == "brute" and grid is not None:
+        raise ValueError("grid= is only meaningful with knn='grid'")
+    plan = build_plan(dx, dy, dz, params=params, area=area, impl="chunked", knn=knn, q_chunk=q_chunk,
+                      d_chunk=d_chunk, grid=grid, device=device)
+    return execute(plan, qx, qy)

@@ -10,7 +10,25 @@ AoaS - one ``(m, 4)`` tensor of aligned structs ``(x, y, z, 0)``: 16 bytes a
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
+
+
+@dataclasses.dataclass
+class PointSet:
+    """A set of m attributed 2-D points in SoA form."""
+
+    x: torch.Tensor  # (m,)
+    y: torch.Tensor  # (m,)
+    z: torch.Tensor  # (m,)
+
+    @property
+    def m(self) -> int:
+        return self.x.shape[0]
+
+    def astype(self, dtype) -> "PointSet":
+        return PointSet(self.x.to(dtype), self.y.to(dtype), self.z.to(dtype))
 
 
 def coord_sentinel(dtype, device=None):

@@ -1,11 +1,15 @@
 """Execute: interpolate one query batch against a plan.  Counterpart of
-the ``naive``, ``tiled``, ``binned`` and ``grid`` (``phase2="exact"``,
-``"farfield"`` and ``"quadtree"``) branches of ``repro.engine.execute``.
+``repro.engine.execute`` for every impl.
 
 The dense impls run one kernel family over the whole padded data: ``naive``
 (``csrc/naive.cu``, both phases in one launch), ``tiled`` (``csrc/knn.cu``
-then ``csrc/weight.cu``), each in the SoA or AoaS layout, and ``binned``
-(``tiled`` SoA with the binned prefilter in ``knn.cu``).
+then ``csrc/weight.cu``), each in the SoA or AoaS layout, ``binned``
+(``tiled`` SoA with the binned prefilter in ``knn.cu``), ``fused``
+(``csrc/fused.cu``, both tiled passes in one launch) and ``tiled_v2``
+(``knn.cu`` with the threshold-skip merge count, then ``weight.cu``).
+``idw`` is ``weight.cu`` at one constant power.  ``chunked`` is plain
+PyTorch on the plan's device: a brute-force or grid kNN, then a chunked
+weight sweep, with no kernel of its own.
 
 The grid path: Morton-sort the queries, split blocks at Morton seams,
 per-query safe radii from the plan's ``required_radius`` table, the
@@ -32,7 +36,7 @@ import weakref
 
 import torch
 
-from repro_torch.core.aidw import adaptive_alpha
+from repro_torch.core.aidw import _interpolate_pass2, adaptive_alpha, brute_r_obs
 from repro_torch.core.grid import (
     cell_of,
     grid_r_obs,
@@ -53,8 +57,11 @@ from repro_torch.kernels.aidw_grid import (
     phase2_near_weights,
     phase2_weights_full,
 )
+from repro_torch.kernels.aidw_fused import aidw_fused_soa
 from repro_torch.kernels.aidw_naive import aidw_naive_aoas, aidw_naive_soa
 from repro_torch.kernels.aidw_tiled import aidw_tiled_aoas, aidw_tiled_soa
+from repro_torch.kernels.aidw_tiled_v2 import aidw_tiled_v2_soa
+from repro_torch.kernels.idw_tiled import idw_tiled_soa
 
 
 def _seam_split_layout(plan: InterpolationPlan, qx_s, qy_s, cx_s, cy_s):
@@ -415,10 +422,38 @@ def _execute_dense(plan: InterpolationPlan, qx, qy):
         z, a = run(*plan.data, qxp, qyp, **kw)
     elif plan.impl == "naive":
         z, a = aidw_naive_soa(*plan.data, qxp, qyp, **kw)
+    elif plan.impl == "fused":
+        z, a = aidw_fused_soa(*plan.data, qxp, qyp, **kw)
+    elif plan.impl == "tiled_v2":
+        z, a, merges = aidw_tiled_v2_soa(*plan.data, qxp, qyp, **kw)
+        n_tiles = plan.data[0].shape[0] // plan.block_d
+        # merges over (blocks x tiles), in float32 as the reference reports it
+        frac = merges.sum().to(torch.float32) / (merges.shape[0] * n_tiles)
+        return z[:n], a[:n], {"merge_fraction": frac}
     else:
         nbins = binned_nbins(plan.params.k, plan.block_d) if plan.impl == "binned" else 0
         z, a = aidw_tiled_soa(*plan.data, qxp, qyp, nbins=nbins, **kw)
     return z[:n], a[:n], {}
+
+
+def _execute_idw(plan: InterpolationPlan, qx, qy):
+    n = qx.shape[0]
+    qxp, qyp = pad_to(qx, plan.block_q, 0.0), pad_to(qy, plan.block_q, 0.0)
+    z = idw_tiled_soa(*plan.data, qxp, qyp, alpha=plan.idw_alpha, exact_hit_eps=plan.params.exact_hit_eps,
+                      block_q=plan.block_q, block_d=plan.block_d)
+    return z[:n], torch.full_like(qx, plan.idw_alpha), {}
+
+
+def _execute_chunked(plan: InterpolationPlan, qx, qy):
+    dx, dy, dz = plan.data
+    params = plan.params
+    if plan.knn == "grid":
+        r_obs = grid_r_obs(plan.grid, qx, qy, params.k)
+    else:
+        r_obs = brute_r_obs(dx, dy, qx, qy, params.k, q_chunk=plan.q_chunk, d_chunk=plan.d_chunk)
+    alpha = adaptive_alpha(r_obs, plan.m, plan.area, params)
+    z = _interpolate_pass2(dx, dy, dz, qx, qy, alpha, params, q_chunk=plan.q_chunk, d_chunk=plan.d_chunk)
+    return z, alpha, {}
 
 
 def _as_queries(plan: InterpolationPlan, q):
@@ -438,6 +473,10 @@ def _execute(plan: InterpolationPlan, qx, qy):
     qy = torch.where(bad, 0.0, qy)
     if plan.impl == "grid":
         z, a, stats = _execute_grid(plan, qx, qy)
+    elif plan.impl == "idw":
+        z, a, stats = _execute_idw(plan, qx, qy)
+    elif plan.impl == "chunked":
+        z, a, stats = _execute_chunked(plan, qx, qy)
     else:
         z, a, stats = _execute_dense(plan, qx, qy)
     nan = torch.tensor(float("nan"), dtype=z.dtype, device=z.device)
@@ -500,6 +539,8 @@ def execute_with_stats(plan: InterpolationPlan, qx, qy):
     processed nonempty nodes: how deep the walk descends) and
     ``quadtree_rtol_bound`` (the plan's proved bound); a block whose node
     table overflows a level's width counts among ``p2_overflow_queries``.
+    ``tiled_v2``: ``merge_fraction``, the share of (query block, data tile)
+    steps that ran the k-best merge.  The other impls report ``{}``.
     This entry syncs with the device to read ``overflow_queries``.
     """
     z, a, stats = _execute(plan, qx, qy)

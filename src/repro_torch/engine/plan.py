@@ -1,11 +1,13 @@
 """Plan construction: every shape and occupancy decision, made once per
-data set.  Counterpart of the ``naive``, ``tiled``, ``binned`` and ``grid``
-(``phase2="exact"``, ``"farfield"`` and ``"quadtree"``) branches of
-``repro.engine.plan``.
+data set.  Counterpart of ``repro.engine.plan`` for every impl: the dense
+kernel family (``naive``, ``tiled``, ``binned``, ``fused``, ``tiled_v2``),
+constant-power ``idw``, the plain-PyTorch ``chunked`` path, and ``grid``
+(``phase2="exact"``, ``"farfield"`` and ``"quadtree"``).
 
 A plan holds the sentinel-padded data rows (SoA, or one ``(m_pad, 4)``
-tensor of AoaS structs for ``layout="aoas"``) and, for ``impl="grid"``, the
-grid snapshot (:class:`UniformGrid` with its CSR arrays), the per-cell
+tensor of AoaS structs for ``layout="aoas"``; the ``chunked`` path keeps
+the data unpadded, with a grid snapshot for ``knn="grid"``) and, for
+``impl="grid"``, the grid snapshot (:class:`UniformGrid` with its CSR arrays), the per-cell
 ``required_radius`` table, and a static candidate capacity chosen from the
 occupancy histogram, with its tile width, the Morton seam-split depth and
 the rebuild on a pathological resolution.  A ``phase2="farfield"`` plan adds
@@ -40,8 +42,7 @@ from repro_torch.core.grid import (
 from repro_torch.core.layouts import coord_sentinel, pad_to, soa_to_aoas
 from repro_torch.errors import PathologicalGridWarning, UnprovableRtolWarning
 
-# impls of the JAX package that this port does not run yet -> ROADMAP item
-_NOT_PORTED = {"fused": "A8b", "tiled_v2": "A8b", "idw": "A8b", "chunked": "A8b"}
+VALID_IMPLS = ("naive", "tiled", "binned", "fused", "tiled_v2", "grid", "idw", "chunked")
 # impls without an AoaS variant, as in the JAX package
 _SOA_ONLY = ("binned", "fused", "grid", "tiled_v2", "idw", "chunked")
 
@@ -71,8 +72,9 @@ class InterpolationPlan:
 
     ``data`` is the sentinel-padded ``(dx, dy, dz)``, each ``(m_pad,)`` with
     ``m_pad % block_d == 0``, or for ``layout="aoas"`` the one tensor
-    ``(m_pad, 4)`` of ``(x, y, z, 0)`` structs.  The grid fields are 0 /
-    ``None`` for the dense impls.
+    ``(m_pad, 4)`` of ``(x, y, z, 0)`` structs; for ``impl="chunked"`` the
+    unpadded ``(dx, dy, dz)``.  The grid fields are 0 / ``None`` for the
+    dense impls.
     """
 
     impl: str
@@ -82,6 +84,10 @@ class InterpolationPlan:
     m: int                    # real (unpadded) data-point count
     block_q: int
     block_d: int              # data-axis tile of the dense sweep / grid Phase 2
+    knn: str                  # chunked: "brute" | "grid"
+    q_chunk: int              # chunked: queries per chunk
+    d_chunk: int              # chunked: data points per tile
+    idw_alpha: float          # idw: the constant power
     cand_capacity: int        # grid: static candidate-row width (points)
     cand_block_d: int         # grid: Phase-1 candidate tile
     grid_rebuilds: int        # grid: coarsening rebuilds during planning
@@ -485,21 +491,30 @@ def build_plan(dx, dy, dz, *, params: AIDWParams = AIDWParams(), area: float | N
                grid: UniformGrid | None = None, target_occupancy: float | None = None,
                query_occupancy: float | None = None, seam_level: int | None = None,
                pipeline: str = "prefetch", phase2: str = "exact", farfield_rtol: float = 1e-3,
-               farfield_radius: int | None = None, min_p2_capacity: int | None = None,
+               farfield_radius: int | None = None, min_p2_capacity: int | None = None, knn: str = "brute",
+               q_chunk: int = 1024, d_chunk: int = 4096, idw_alpha: float = 2.0,
                device=None) -> InterpolationPlan:
     """Build an :class:`InterpolationPlan` from a data set and configuration.
 
     ``impl``: "naive" (the paper's version without shared memory; the plan
     caps ``block_q`` at 64), "tiled" (the paper's shared-memory version),
-    "binned" (tiled with the approximate binned prefilter in Phase 1) or
-    "grid" (the main path: grid-accelerated Phase 1, exact Phase 2).
+    "binned" (tiled with the approximate binned prefilter in Phase 1),
+    "fused" (both tiled passes in one launch), "tiled_v2" (tiled with the
+    threshold-skip kNN pass and its merge count), "grid" (the main path:
+    grid-accelerated Phase 1, exact Phase 2), "idw" (standard IDW at the
+    constant power ``idw_alpha``: no kNN pass, no ``m >= k`` check, and no
+    area needed) or "chunked" (plain PyTorch in chunks of ``q_chunk``
+    queries and ``d_chunk`` points on unpadded data, Phase 1 by brute force
+    or, with ``knn="grid"``, the grid ring search).
     ``layout`` is "soa" or, for naive and tiled, "aoas" (the data packed as
     ``(m_pad, 4)`` structs).  ``grid=`` supplies
     a prebuilt :class:`UniformGrid`; ``target_occupancy`` seeds the
     auto-resolution otherwise.  ``query_occupancy`` (grid) is the expected
     queries per cell of a serving batch that sizes the static candidate
     capacity (default: data occupancy / 4); queries in blocks beyond it stay
-    exact through the ring-search blend.  ``seam_level`` (grid) is the Morton
+    exact through the ring-search blend.  ``grid=`` also serves
+    ``knn="grid"``; without it a chunked plan builds one at the default
+    occupancy.  ``seam_level`` (grid) is the Morton
     split depth (``None`` auto, 0 off).  ``pipeline`` (grid) is "prefetch"
     (per-block tile table) or "dense" (every tile; the same bits).
     ``phase2`` (grid) is "exact" (the full m-point sweep), "farfield"
@@ -518,17 +533,17 @@ def build_plan(dx, dy, dz, *, params: AIDWParams = AIDWParams(), area: float | N
     Data must be finite (``ValueError`` otherwise); non-finite queries are
     handled at execute time.
     """
-    valid_impls = ("naive", "tiled", "binned", "grid", *_NOT_PORTED)
-    if impl not in valid_impls:
-        raise ValueError(f"impl must be one of {valid_impls}, got {impl!r}")
+    if impl not in VALID_IMPLS:
+        raise ValueError(f"impl must be one of {VALID_IMPLS}, got {impl!r}")
     if layout not in ("soa", "aoas"):
         raise ValueError(layout)
     if layout == "aoas" and impl in _SOA_ONLY:
         raise ValueError(f"impl={impl!r} is SoA-only (not available for layout=aoas)")
-    if impl in _NOT_PORTED:
-        raise NotImplementedError(f"impl={impl!r} is not ported yet (ROADMAP item {_NOT_PORTED[impl]})")
-    if grid is not None and impl != "grid":
-        raise ValueError("grid= is only meaningful with impl='grid'")
+    uses_grid = impl == "grid" or (impl == "chunked" and knn == "grid")
+    if grid is not None and not uses_grid:
+        raise ValueError("grid= is only meaningful with impl='grid' or knn='grid'")
+    if impl == "chunked" and knn not in ("brute", "grid"):
+        raise ValueError(f"knn must be 'brute' or 'grid', got {knn!r}")
     if pipeline not in ("prefetch", "dense"):
         raise ValueError(f"pipeline must be 'prefetch' or 'dense', got {pipeline!r}")
     if seam_level is not None and not (0 <= int(seam_level) <= 8):
@@ -557,15 +572,18 @@ def build_plan(dx, dy, dz, *, params: AIDWParams = AIDWParams(), area: float | N
         raise TypeError("dx, dy and dz must share one dtype")
 
     m = int(dx.shape[0])
-    if m < params.k:
+    if impl != "idw" and m < params.k:
         raise ValueError(f"need at least k={params.k} data points, got {m}")
     if area is None:
         area = params.area
     if area is None:
-        raise ValueError("plans require a static area; pass area= or set params.area")
+        if impl != "idw":  # constant-power IDW has no Eq. (2), no area
+            raise ValueError("plans require a static area; pass area= or set params.area")
+        area = 0.0
     params = dataclasses.replace(params, alpha_levels=tuple(params.alpha_levels))
     fields = dict(impl=impl, layout=layout, params=params, area=float(area), m=m, block_q=block_q,
-                  block_d=block_d, cand_capacity=0, cand_block_d=0, grid_rebuilds=0,
+                  block_d=block_d, knn=knn, q_chunk=q_chunk, d_chunk=d_chunk, idw_alpha=float(idw_alpha),
+                  cand_capacity=0, cand_block_d=0, grid_rebuilds=0,
                   seam_level=0, pipeline=pipeline, phase2=phase2, farfield_rtol=float(farfield_rtol),
                   farfield_radius=0, farfield_bound=0.0, p2_capacity=0, p2_block_d=0, p2_far_block_d=0,
                   qt_tau=0.0, qt_levels=(), grid=None, r_need=None, far=())
@@ -575,7 +593,11 @@ def build_plan(dx, dy, dz, *, params: AIDWParams = AIDWParams(), area: float | N
                                  query_occupancy=query_occupancy, seam_level=seam_level,
                                  phase2=phase2, farfield_rtol=float(farfield_rtol),
                                  farfield_radius=farfield_radius, min_p2_capacity=min_p2_capacity))
-    else:
+    elif impl == "chunked":
+        if knn == "grid" and grid is None:
+            grid = build_grid(dx, dy, dz, target_occupancy=target_occupancy or DEFAULT_OCCUPANCY)
+        fields.update(data=(dx, dy, dz), grid=grid)
+    else:  # the dense kernel family and idw: sentinel-pad the streamed data axis
         if impl == "naive":
             fields["block_q"] = min(block_q, 64)
         data = _pad_data(dx, dy, dz, block_d)
@@ -594,19 +616,22 @@ def plan_from_reference(statics: dict, arrays: dict, device=None) -> Interpolati
     across, as weights are carried across for a model.
 
     ``arrays`` (numpy): the padded data rows ``dx, dy, dz`` (for
-    ``layout="aoas"`` instead the padded ``(m_pad, 4)`` structs ``data``) and, for a grid
-    plan, ``origin, cell_size, counts, cum, starts, pt_x, pt_y, pt_z`` and
-    ``r_need``; for a far-field plan also the padded cell aggregates
-    ``far_cent_x, far_cent_y, far_count, far_z_sum, far_ix, far_iy``; for a
-    quadtree plan, per level ``lv`` (0 the cells), the node arrays with their
+    ``layout="aoas"`` instead the padded ``(m_pad, 4)`` structs ``data``;
+    for a chunked plan the unpadded data) and, for a grid plan,
+    ``origin, cell_size, counts, cum, starts, pt_x, pt_y, pt_z`` and
+    ``r_need`` (a chunked plan with ``knn="grid"``: all but ``r_need``);
+    for a far-field plan also the padded cell aggregates ``far_cent_x,
+    far_cent_y, far_count, far_z_sum, far_ix, far_iy``; for a quadtree
+    plan, per level ``lv`` (0 the cells), the node arrays with their
     appended sentinel node ``qt{lv}_cent_x, qt{lv}_cent_y, qt{lv}_count,
     qt{lv}_z_sum, qt{lv}_mx, qt{lv}_my, qt{lv}_e``.
-    ``statics``: ``impl`` ("grid", "naive", "tiled" or "binned"), ``layout``
-    ("soa", the default, or "aoas"), ``m``, ``area``, ``params``
+    ``statics``: ``impl`` (any of :data:`VALID_IMPLS`, default "grid"),
+    ``layout`` ("soa", the default, or "aoas"), ``m``, ``area``, ``params``
     (an :class:`AIDWParams` or a dict of its fields), ``block_q``,
-    ``block_d`` and, for a grid plan, ``cand_capacity``, ``cand_block_d``,
-    ``seam_level``, ``pipeline`` and optionally ``grid_rebuilds``; for a
-    far-field plan ``phase2="farfield"``, ``farfield_rtol``,
+    ``block_d``; for an idw plan ``idw_alpha``; for a chunked plan ``knn``,
+    ``q_chunk`` and ``d_chunk``; for a grid plan ``cand_capacity``,
+    ``cand_block_d``, ``seam_level``, ``pipeline`` and optionally
+    ``grid_rebuilds``; for a far-field plan ``phase2="farfield"``, ``farfield_rtol``,
     ``farfield_radius``, ``farfield_bound``, ``p2_capacity``, ``p2_block_d``
     and ``p2_far_block_d``; for a quadtree plan ``phase2="quadtree"``,
     ``farfield_rtol``, ``farfield_radius``, ``farfield_bound``,
@@ -625,8 +650,9 @@ def plan_from_reference(statics: dict, arrays: dict, device=None) -> Interpolati
     params = dataclasses.replace(params, alpha_levels=tuple(params.alpha_levels))
     impl = statics.get("impl", "grid")
     layout = statics.get("layout", "soa")
-    if impl not in ("grid", "naive", "tiled", "binned"):
-        raise NotImplementedError(f"impl={impl!r} is not ported yet")
+    knn = statics.get("knn", "brute")
+    if impl not in VALID_IMPLS:
+        raise ValueError(f"impl must be one of {VALID_IMPLS}, got {impl!r}")
     if layout == "aoas" and impl in _SOA_ONLY:
         raise ValueError(f"impl={impl!r} is SoA-only (not available for layout=aoas)")
     phase2 = statics.get("phase2", "exact")
@@ -637,12 +663,13 @@ def plan_from_reference(statics: dict, arrays: dict, device=None) -> Interpolati
         far = tuple(t(f"far_{n}").reshape(-1) for n in FAR_ARRAYS)
     elif phase2 == "quadtree":
         far = tuple(tuple(t(f"qt{lv}_{n}").reshape(-1) for n in QT_ARRAYS) for lv in range(len(qt_levels)))
-    if impl == "grid":
+    if impl == "grid" or (impl == "chunked" and knn == "grid"):
         counts = t("counts").to(torch.int32)
         gy, gx = counts.shape
         grid = grid_from_csr(gx, gy, t("origin").to(torch.float32), t("cell_size").to(torch.float32),
                              counts, t("cum").to(torch.int32), t("pt_x"), t("pt_y"), t("pt_z"),
                              t("starts").to(torch.int32))
+    if impl == "grid":
         r_need = t("r_need").to(torch.int32)
     if layout == "aoas":
         data = (t("data").reshape(-1, 4).contiguous(),)
@@ -650,8 +677,9 @@ def plan_from_reference(statics: dict, arrays: dict, device=None) -> Interpolati
         data = tuple(t(n).reshape(-1) for n in ("dx", "dy", "dz"))
     return InterpolationPlan(
         impl=impl, layout=layout, params=params, area=float(statics["area"]), m=int(statics["m"]),
-        block_q=int(statics["block_q"]), block_d=int(statics["block_d"]),
-        cand_capacity=int(statics.get("cand_capacity", 0)),
+        block_q=int(statics["block_q"]), block_d=int(statics["block_d"]), knn=knn,
+        q_chunk=int(statics.get("q_chunk", 1024)), d_chunk=int(statics.get("d_chunk", 4096)),
+        idw_alpha=float(statics.get("idw_alpha", 2.0)), cand_capacity=int(statics.get("cand_capacity", 0)),
         cand_block_d=int(statics.get("cand_block_d", 0)),
         grid_rebuilds=int(statics.get("grid_rebuilds", 0)),
         seam_level=int(statics.get("seam_level", 0)), pipeline=statics.get("pipeline", "prefetch"),

@@ -2,6 +2,6 @@
 
 The kernels are built at first use (``_build``), never at import."""
 
-from repro_torch.kernels.ops import aidw
+from repro_torch.kernels.ops import aidw, idw
 
-__all__ = ["aidw"]
+__all__ = ["aidw", "idw"]

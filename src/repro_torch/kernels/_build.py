@@ -2,8 +2,10 @@
 
 Each source under ``csrc/`` is compiled by ``nvcc`` into its own shared
 library with a plain ``extern "C"`` interface and loaded with ``ctypes``.
-The build runs at first use, into ``build/repro_torch_kernels/`` at the root
-of the checkout, one ``nvcc`` per source, all started together.  A library's
+The build runs at first use, one ``nvcc`` per source, all started together,
+into the directory that the environment variable ``REPRO_TORCH_BUILD_DIR``
+names, or by default ``build/repro_torch_kernels/`` at the root of the
+checkout (an installed copy sets the variable to a writable directory).  A library's
 file name carries a hash of its sources and flags, so an edit rebuilds it
 and an unchanged source is reused.  Nothing here runs at import time.
 
@@ -16,17 +18,19 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+DEFAULT_BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+BUILD_DIR_ENV = "REPRO_TORCH_BUILD_DIR"
 
 # library name -> its source; every library also includes the shared headers
 SOURCES = {"knn": "knn.cu", "weight": "weight.cu", "near": "near.cu", "far": "far.cu", "far_node": "far_node.cu",
-           "naive": "naive.cu"}
+           "naive": "naive.cu", "fused": "fused.cu"}
 HEADERS = ("aidw_common.cuh", "aoas.cuh")
 
 NVCC_FLAGS = (
@@ -42,9 +46,12 @@ ENTRY_POINTS = {
     **{f"aidw_knn_alpha_{t}": ("knn", [_P, _P, _P, _P, ctypes.c_longlong, _P] + [_I] * 7 + [_D] * 9 + [_P, _P])
        for t in ("f32", "f64")},
     **{f"aidw_knn_alpha_aoas_{t}": ("knn", [_P] * 3 + [_I] * 6 + [_D] * 9 + [_P, _P]) for t in ("f32", "f64")},
+    **{f"aidw_knn_alpha_v2_{t}": ("knn", [_P] * 4 + [_I] * 6 + [_D] * 9 + [_P] * 3) for t in ("f32", "f64")},
     **{f"aidw_weight_{t}": ("weight", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _D, _D, _P, _P])
        for t in ("f32", "f64")},
     **{f"aidw_weight_aoas_{t}": ("weight", [_P] * 4 + [_I] * 4 + [_D, _D, _P, _P]) for t in ("f32", "f64")},
+    **{f"aidw_idw_{t}": ("weight", [_P] * 5 + [_I] * 4 + [_D] * 3 + [_P, _P]) for t in ("f32", "f64")},
+    **{f"aidw_fused_{t}": ("fused", [_P] * 5 + [_I] * 5 + [_D] * 11 + [_P] * 3) for t in ("f32", "f64")},
     **{f"aidw_naive_soa_{t}": ("naive", [_P] * 5 + [_I] * 5 + [_D] * 11 + [_P] * 3) for t in ("f32", "f64")},
     **{f"aidw_naive_aoas_{t}": ("naive", [_P] * 3 + [_I] * 5 + [_D] * 11 + [_P] * 3) for t in ("f32", "f64")},
     **{f"aidw_near_weight_{t}": ("near", [_P] * 7 + [_I] * 5 + [_D] + [_P] * 5) for t in ("f32", "f64")},
@@ -54,7 +61,8 @@ ENTRY_POINTS = {
 
 # kernel name (the TPU kernel it replaces) -> launches since the last reset
 LAUNCHES = {"knn_soa": 0, "knn_skip": 0, "weight_soa": 0, "near_weight": 0, "far_cell": 0, "far_node": 0,
-            "naive_soa": 0, "naive_aoas": 0, "knn_aoas": 0, "weight_aoas": 0, "knn_binned": 0}
+            "naive_soa": 0, "naive_aoas": 0, "knn_aoas": 0, "weight_aoas": 0, "knn_binned": 0,
+            "fused": 0, "knn_v2": 0, "idw": 0}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -79,8 +87,14 @@ def _digest(name: str) -> str:
     return h.hexdigest()[:16]
 
 
+def build_dir() -> Path:
+    """Where the libraries are built: ``$REPRO_TORCH_BUILD_DIR`` if set, else
+    :data:`DEFAULT_BUILD_DIR`."""
+    return Path(os.environ.get(BUILD_DIR_ENV) or DEFAULT_BUILD_DIR)
+
+
 def library_path(name: str) -> Path:
-    return BUILD_DIR / f"libaidw_{name}_{_digest(name)}.so"
+    return build_dir() / f"libaidw_{name}_{_digest(name)}.so"
 
 
 def nvcc_command(name: str, out: Path) -> list[str]:
@@ -98,7 +112,7 @@ def build_all() -> dict[str, Path]:
     if not os.path.exists(nvcc_path()):
         raise RuntimeError(f"nvcc not found (looked for {nvcc_path()}); the CUDA kernels are built "
                            "on a machine with the CUDA toolkit")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir().mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, path in paths.items():
         if path.exists():
@@ -119,15 +133,25 @@ def build_all() -> dict[str, Path]:
     return paths
 
 
-def ptxas_report() -> list[str]:
-    """The register and spill lines of the last build of every library."""
-    lines = []
+def ptxas_entries() -> list[tuple[str, str, int, int, int]]:
+    """Per kernel of the last build of every library, from its ptxas
+    report: ``(source, mangled name, registers, spill store bytes, spill
+    load bytes)``."""
+    out = []
     for name in SOURCES:
         log = library_path(name).with_name(library_path(name).name + ".ptxas.txt")
-        if log.exists():
-            lines += [f"{SOURCES[name]}: {ln.strip()}" for ln in log.read_text().splitlines()
-                      if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
-    return lines
+        if not log.exists():
+            continue
+        entry, spills = None, (0, 0)
+        for ln in log.read_text().splitlines():
+            if m := re.search(r"Compiling entry function '([^']+)'", ln):
+                entry, spills = m.group(1), (0, 0)
+            elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln):
+                spills = (int(m.group(1)), int(m.group(2)))
+            elif (m := re.search(r"Used (\d+) registers", ln)) and entry is not None:
+                out.append((SOURCES[name], entry, int(m.group(1)), *spills))
+                entry = None
+    return out
 
 
 def entry(fn_name: str):

@@ -28,13 +28,13 @@ from repro_torch.core.aidw import AIDWParams, tiny_for
 from repro_torch.kernels import _build
 from repro_torch.kernels._common import alpha_from_best, merge_k_best, pow_weight, sq_dist_tile
 from repro_torch.kernels.aidw_tiled import (
-    SUPPORTED_K,
     _alpha_consts,
     _check_float,
     _on_card,
     _suffix,
     aoas_columns,
     check_aoas,
+    check_k,
 )
 
 _NAIVE_THREADS = 256
@@ -78,8 +78,7 @@ def _check_shapes(name: str, n: int, m: int, block_q: int, block_d: int) -> None
 
 def _launch(entry: str, pointers, n: int, m: int, block_d: int, qx, params: AIDWParams, area: float,
             m_real: int):
-    if params.k not in SUPPORTED_K:
-        raise ValueError(f"{entry}: the CUDA kernel is built for k in {SUPPORTED_K}, got {params.k}")
+    check_k(entry, params.k)
     z, alpha = torch.empty_like(qx), torch.empty_like(qx)
     fn = _build.entry(f"aidw_{entry}_{_suffix(qx.dtype)}")
     err = fn(*pointers, n, m, block_d, params.k, _NAIVE_THREADS, *_alpha_consts(params, area, m_real),

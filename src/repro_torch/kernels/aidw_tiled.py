@@ -26,6 +26,7 @@ they are the reference the kernels are held against.
 from __future__ import annotations
 
 import math
+import re
 
 import torch
 
@@ -33,9 +34,18 @@ from repro_torch.core.aidw import AIDWParams, expected_nn_distance, tiny_for
 from repro_torch.kernels import _build
 from repro_torch.kernels._common import alpha_from_best, merge_k_best, sq_dist_tile, weight_tile
 
-# the k values csrc/knn.cu is instantiated for: 10 (aidw-pod-1m and the
-# golden fixture) and 5; a new value goes here and into knn.cu's switch
-SUPPORTED_K = (5, 10)
+def _k_list() -> tuple[int, ...]:
+    """The k values of ``AIDW_K_LIST`` in ``csrc/aidw_common.cuh``: every
+    K-templated kernel (``knn.cu``, ``naive.cu``, ``fused.cu``) takes its
+    ``switch (k)`` cases from that one list."""
+    text = (_build.CSRC / "aidw_common.cuh").read_text()
+    line = re.search(r"#define AIDW_K_LIST\(X\)(.*)", text).group(1)
+    return tuple(int(k) for k in re.findall(r"X\((\d+)\)", line))
+
+
+# the k values the CUDA kernels are instantiated for; a k outside them is
+# refused on the card (the CPU path takes any k)
+SUPPORTED_K = _k_list()
 
 _KNN_THREADS = 256
 _WEIGHT_THREADS = 256
@@ -64,6 +74,13 @@ def _check_float(name: str, *tensors) -> None:
             raise TypeError(f"{name}: mixed dtypes {dtype} and {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
+
+
+def check_k(name: str, k: int) -> None:
+    """Refuse a k that the CUDA kernels are not instantiated for."""
+    if k not in SUPPORTED_K:
+        raise ValueError(f"{name}: the CUDA kernels are built for k in {min(SUPPORTED_K)}..{max(SUPPORTED_K)} "
+                         f"(AIDW_K_LIST in csrc/aidw_common.cuh), got k={k}")
 
 
 def _suffix(dtype) -> str:
@@ -154,8 +171,7 @@ def knn_alpha(qx, qy, cand_x, cand_y, *, block_q: int, tile_d: int, num_tiles=No
         return knn_alpha_plain(qx, qy, cand_x, cand_y, block_q=block_q, tile_d=tile_d,
                                num_tiles=num_tiles, nbins=nbins, params=params, area=area, m_real=m_real)
     _check_float("knn_alpha", qx, qy, cand_x, cand_y)
-    if params.k not in SUPPORTED_K:
-        raise ValueError(f"knn_alpha: the CUDA kernel is built for k in {SUPPORTED_K}, got {params.k}")
+    check_k("knn_alpha", params.k)
     if num_tiles is not None and (num_tiles.dtype != torch.int32 or num_tiles.shape != (rows,)
                                   or not num_tiles.is_contiguous()):
         raise ValueError("knn_alpha: num_tiles must be a contiguous int32 tensor, one per row")
@@ -247,8 +263,7 @@ def knn_alpha_aoas(qx, qy, data, *, block_q: int, tile_d: int, params: AIDWParam
                                     m_real=m_real)
     _check_float("knn_alpha_aoas", qx, qy, data)
     check_aoas("knn_alpha_aoas", data)
-    if params.k not in SUPPORTED_K:
-        raise ValueError(f"knn_alpha_aoas: the CUDA kernel is built for k in {SUPPORTED_K}, got {params.k}")
+    check_k("knn_alpha_aoas", params.k)
     alpha = torch.empty_like(qx)
     fn = _build.entry(f"aidw_knn_alpha_aoas_{_suffix(qx.dtype)}")
     err = fn(qx.data_ptr(), qy.data_ptr(), data.data_ptr(), n, block_q, m, tile_d, params.k,

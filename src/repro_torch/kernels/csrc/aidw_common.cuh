@@ -37,6 +37,11 @@ __device__ __forceinline__ double sqrt_p(double x) { return sqrt(x); }
 // the same sum wherever they give the same terms.
 constexpr int kSumRun = 32;
 
+// The k values of the K-templated kernels (knn.cu, naive.cu, fused.cu): each
+// `switch (k)` takes its cases from this one list, and kernels/aidw_tiled.py
+// reads it as SUPPORTED_K.  A k outside it raises in the wrappers.
+#define AIDW_K_LIST(X) X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(11) X(12) X(13) X(14) X(15) X(16)
+
 // d^2 = dx*dx + dy*dy, rounded after every operation.  A pad point at the
 // sentinel coordinate (finfo.max / 4) overflows to +inf.
 template <typename T>
@@ -90,6 +95,57 @@ __device__ __forceinline__ T alpha_from_r_obs(T r_obs, const AlphaConsts<T>& c) 
   alpha = lerp_segment(alpha, mu, T(0.3), c.a[2]);
   alpha = lerp_segment(alpha, mu, T(0.5), c.a[3]);
   return lerp_segment(alpha, mu, T(0.7), c.a[4]);
+}
+
+// Folds v into the ascending k-best array: a branch-free insertion behind
+// one strict `<` against the k-th best, so duplicates are kept, as
+// merge_k_best keeps them.  Returns whether v entered.
+template <typename T, int K>
+__device__ __forceinline__ bool kbest_insert(T (&best)[K], T v) {
+  if (!(v < best[K - 1])) return false;
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    const T b = best[s];
+    const bool take = v < b;
+    best[s] = take ? v : b;
+    v = take ? b : v;
+  }
+  return true;
+}
+
+// alpha of a k-best set: r_obs = mean of sqrt(best), summed in ascending
+// order, times 1/K in the dtype (how the reference's mean rounds), then
+// Eq. (2)-(6).
+template <typename T, int K>
+__device__ __forceinline__ T kbest_alpha(const T (&best)[K], const AlphaConsts<T>& c) {
+  T sum = sqrt_p(best[0]);
+#pragma unroll
+  for (int j = 1; j < K; ++j) sum = add_rn(sum, sqrt_p(best[j]));
+  return alpha_from_r_obs(mul_rn(sum, T(1.0 / K)), c);
+}
+
+// One staged tile of the weight sweep (Eq. 1) for one query, with
+// neg_ah = -alpha / 2: w = exp(neg_ah * log(max(d^2, tiny))), the tile's
+// sum(w) and sum(w z) taken left to right and folded into the running totals
+// (weight.cu's order: the tile boundaries are the plan's block_d), and the
+// first minimum d^2 with its z, kept with a strict `<` across tiles.
+template <typename T>
+__device__ __forceinline__ void weight_tile_sums(T px, T py, T neg_ah, const T* sx, const T* sy, const T* sz,
+                                            int cnt, T tiny, T& sum_w, T& sum_wz, T& min_d2, T& hit_z) {
+  T tile_w = T(0), tile_wz = T(0);
+  for (int j = 0; j < cnt; ++j) {
+    const T d2 = sq_dist(px, py, sx[j], sy[j]);
+    const T zj = sz[j];
+    const T w = exp_p(mul_rn(neg_ah, log_p(d2 > tiny ? d2 : tiny)));
+    tile_w = add_rn(tile_w, w);
+    tile_wz = add_rn(tile_wz, mul_rn(w, zj));
+    if (d2 < min_d2) {
+      min_d2 = d2;
+      hit_z = zj;
+    }
+  }
+  sum_w = add_rn(sum_w, tile_w);
+  sum_wz = add_rn(sum_wz, tile_wz);
 }
 
 }  // namespace aidw

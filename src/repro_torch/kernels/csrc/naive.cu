@@ -54,21 +54,9 @@ __global__ void naive_kernel(const T* __restrict__ qx, const T* __restrict__ qy,
       x = dx[i];
       y = dy[i];
     }
-    T v = sq_dist(px, py, x, y);
-    if (v < best[K - 1]) {
-#pragma unroll
-      for (int s = 0; s < K; ++s) {
-        const T b = best[s];
-        const bool take = v < b;
-        best[s] = take ? v : b;
-        v = take ? b : v;
-      }
-    }
+    kbest_insert(best, sq_dist(px, py, x, y));
   }
-  T sum = sqrt_p(best[0]);
-#pragma unroll
-  for (int j = 1; j < K; ++j) sum = add_rn(sum, sqrt_p(best[j]));
-  const T alpha = alpha_from_r_obs(mul_rn(sum, T(1.0 / K)), consts);
+  const T alpha = kbest_alpha(best, consts);
   alpha_out[q] = alpha;
 
   // ---- pass 2: the distances again, then the weights (lines 52-58)
@@ -123,8 +111,7 @@ cudaError_t launch(const void* qx, const void* qy, const void* dx, const void* d
                                                          static_cast<T*>(alpha));            \
     return cudaGetLastError();
   switch (k) {
-    AIDW_NAIVE_CASE(5)
-    AIDW_NAIVE_CASE(10)
+    AIDW_K_LIST(AIDW_NAIVE_CASE)
     default:
       break;
   }

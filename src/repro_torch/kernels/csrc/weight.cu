@@ -8,7 +8,10 @@
 // _weight_kernel_aoas (launched by aidw_tiled_aoas, `tiled` with
 // layout="aoas"): the (m, 4) structs are staged into the same sx, sy, sz
 // tiles with one vector load a point, so the inner loop, and the bits, are
-// the SoA ones.
+// the SoA ones.  With CONST_AH it replaces src/repro/kernels/idw_tiled.py:
+// _idw_kernel (launched by idw_tiled_soa, the `idw` impl): the same sweep
+// at one alpha / 2 for every query, passed by value and rounded to the
+// dtype once on the host, as jnp.asarray(alpha * 0.5, dtype) rounds it.
 //
 // Design: one thread per query; the data streams through shared memory in
 // tiles of tile_d points (the plan's block_d, the Pallas kernel's data
@@ -41,11 +44,12 @@
 namespace aidw {
 
 // AOAS: dx is the (m, 4) struct array and dy, dz are unused.
-template <typename T, bool AOAS>
+// CONST_AH: every query takes ah_const and ah is unused.
+template <typename T, bool AOAS, bool CONST_AH>
 __global__ void weight_kernel(const T* __restrict__ qx, const T* __restrict__ qy,
                               const T* __restrict__ ah, const T* __restrict__ dx,
                               const T* __restrict__ dy, const T* __restrict__ dz, int n, int m,
-                              int tile_d, T eps, T tiny, T* __restrict__ out) {
+                              int tile_d, T eps, T tiny, T ah_const, T* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sx = reinterpret_cast<T*>(smem_raw);
   T* sy = sx + tile_d;
@@ -55,7 +59,12 @@ __global__ void weight_kernel(const T* __restrict__ qx, const T* __restrict__ qy
   const bool live = q < n;
   const T px = live ? qx[q] : T(0);
   const T py = live ? qy[q] : T(0);
-  const T neg_ah = live ? -ah[q] : T(0);
+  T neg_ah;
+  if constexpr (CONST_AH) {
+    neg_ah = -ah_const;
+  } else {
+    neg_ah = live ? -ah[q] : T(0);
+  }
 
   T sum_w = T(0), sum_wz = T(0), min_d2 = T(INFINITY), hit_z = T(0);
   for (int base = 0; base < m; base += tile_d) {
@@ -70,37 +79,24 @@ __global__ void weight_kernel(const T* __restrict__ qx, const T* __restrict__ qy
       }
     }
     __syncthreads();
-    T tile_w = T(0), tile_wz = T(0);
-    for (int j = 0; j < cnt; ++j) {
-      const T d2 = sq_dist(px, py, sx[j], sy[j]);
-      const T zj = sz[j];
-      const T w = exp_p(mul_rn(neg_ah, log_p(d2 > tiny ? d2 : tiny)));
-      tile_w = add_rn(tile_w, w);
-      tile_wz = add_rn(tile_wz, mul_rn(w, zj));
-      if (d2 < min_d2) {
-        min_d2 = d2;
-        hit_z = zj;
-      }
-    }
-    sum_w = add_rn(sum_w, tile_w);
-    sum_wz = add_rn(sum_wz, tile_wz);
+    weight_tile_sums(px, py, neg_ah, sx, sy, sz, cnt, tiny, sum_w, sum_wz, min_d2, hit_z);
     __syncthreads();
   }
   if (live) out[q] = (min_d2 <= eps) ? hit_z : sum_wz / sum_w;
 }
 
-template <typename T, bool AOAS>
+template <typename T, bool AOAS, bool CONST_AH = false>
 cudaError_t launch(const void* qx, const void* qy, const void* ah, const void* dx, const void* dy,
                    const void* dz, int n, int m, int tile_d, int threads, double eps, double tiny,
-                   void* out, void* stream) {
+                   void* out, void* stream, double ah_const = 0.0) {
   if (n <= 0) return cudaSuccess;
   const size_t smem = 3 * static_cast<size_t>(tile_d) * sizeof(T);
   if (threads <= 0 || threads > 1024 || tile_d <= 0 || smem > 48 * 1024) return cudaErrorInvalidValue;
   const int blocks = (n + threads - 1) / threads;
-  weight_kernel<T, AOAS><<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  weight_kernel<T, AOAS, CONST_AH><<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(qx), static_cast<const T*>(qy), static_cast<const T*>(ah),
       static_cast<const T*>(dx), static_cast<const T*>(dy), static_cast<const T*>(dz), n, m, tile_d,
-      static_cast<T>(eps), static_cast<T>(tiny), static_cast<T*>(out));
+      static_cast<T>(eps), static_cast<T>(tiny), static_cast<T>(ah_const), static_cast<T*>(out));
   return cudaGetLastError();
 }
 
@@ -131,3 +127,16 @@ AIDW_WEIGHT_ENTRY(aidw_weight_f64, double)
 
 AIDW_WEIGHT_AOAS_ENTRY(aidw_weight_aoas_f32, float)
 AIDW_WEIGHT_AOAS_ENTRY(aidw_weight_aoas_f64, double)
+
+// Standard IDW: out[q] for q < n at the constant power alpha; alpha / 2 is
+// taken in double and rounded to the dtype once.
+#define AIDW_IDW_ENTRY(NAME, T)                                                                  \
+  extern "C" cudaError_t NAME(const void* qx, const void* qy, const void* dx, const void* dy,   \
+                              const void* dz, int n, int m, int tile_d, int threads, double alpha, \
+                              double eps, double tiny, void* out, void* stream) {                \
+    return aidw::launch<T, false, true>(qx, qy, nullptr, dx, dy, dz, n, m, tile_d, threads, eps,  \
+                                        tiny, out, stream, alpha * 0.5);                          \
+  }
+
+AIDW_IDW_ENTRY(aidw_idw_f32, float)
+AIDW_IDW_ENTRY(aidw_idw_f64, double)

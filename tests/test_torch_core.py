@@ -3,7 +3,8 @@
 Inputs are made with numpy from a seed and fed to both packages.  Tolerances:
 alpha within 1e-6 absolute and z within 1e-5 relative in float32 (the two
 libraries' cos/exp/log and sum orders differ by a few ulps); 1e-12 in
-float64, with the float64 JAX reference made under ``jax.enable_x64(True)``.
+float64, with the float64 JAX reference made under JAX's x64 context
+(:func:`enable_x64`, which the port's other test files import from here).
 Integer and layout state (grid, radii, Morton ids, seam layouts) must be
 equal exactly.
 """
@@ -38,8 +39,18 @@ DTYPES = [np.float32, np.float64]
 TOL = {np.float32: (1e-6, 1e-5), np.float64: (1e-12, 1e-12)}
 
 
+def enable_x64(on: bool = True):
+    """JAX's x64 context under either of its names: ``jax.enable_x64`` where
+    the installed JAX has it, else ``jax.experimental.enable_x64`` (older
+    releases, such as the one CI pins)."""
+    ctx = getattr(jax, "enable_x64", None)
+    if ctx is None:
+        from jax.experimental import enable_x64 as ctx
+    return ctx(on)
+
+
 def _x64(dtype):
-    return jax.enable_x64(dtype == np.float64)
+    return enable_x64(dtype == np.float64)
 
 
 def _np(t):

@@ -7,7 +7,7 @@ the slice through ``build_plan`` + ``execute`` against the JAX ``execute``.
 
 Tolerances: alpha within 1e-6 absolute and z within 1e-5 relative in
 float32; 1e-12 in float64, with the float64 JAX reference made under
-``jax.enable_x64(True)``.  Plan data and ``block_q`` are equal exactly.  The
+JAX's x64 context (``test_torch_core.enable_x64``).  Plan data and ``block_q`` are equal exactly.  The
 golden gate is the one of ``tests/test_golden.py``: RTOL 5e-4 / ATOL 5e-5.
 ``binned`` is approximate and meets the error envelope of
 ``tests/kernels/test_aidw_variants.py`` against the reference instead.
@@ -18,7 +18,6 @@ bit.
 import os
 import re
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -42,6 +41,7 @@ from repro_torch.engine.execute import binned_nbins
 from repro_torch.kernels import _build, aidw
 from repro_torch.kernels.aidw_naive import aidw_naive_aoas, aidw_naive_soa
 from repro_torch.kernels.aidw_tiled import aidw_tiled_aoas, check_aoas, knn_alpha, weight_sweep
+from test_torch_core import enable_x64
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "aidw_golden.npz")
 RTOL, ATOL = 5e-4, 5e-5
@@ -89,7 +89,7 @@ def _sentinel_padded(v, mult, dtype, fill=None):
 def test_soa_aoas_transforms_match(dtype):
     rng = np.random.default_rng(61)
     x, y, z = (rng.random(37).astype(dtype) for _ in range(3))
-    with jax.enable_x64(dtype == np.float64):
+    with enable_x64(dtype == np.float64):
         ref = np.asarray(j_soa_to_aoas(jnp.asarray(x), jnp.asarray(y), jnp.asarray(z)))
         ref_noz = np.asarray(j_soa_to_aoas(jnp.asarray(x), jnp.asarray(y)))
     a = soa_to_aoas(_t(x), _t(y), _t(z))
@@ -110,7 +110,7 @@ def test_naive_kernels_match_pallas(dtype):
             _sentinel_padded(dz, 128, dtype, 0.0)]
     qp = [_sentinel_padded(q, 64, dtype, 0.0) for q in (qx, qy)]
     kw = dict(area=1.0, m_real=500, block_q=64)
-    with jax.enable_x64(dtype == np.float64):
+    with enable_x64(dtype == np.float64):
         jd = [jnp.asarray(p)[None] for p in pads]
         z_s, a_s = j_naive_soa(*jd, jnp.asarray(qp[0])[:, None], jnp.asarray(qp[1])[:, None],
                                params=JParams(**P), interpret=True, **kw)
@@ -136,7 +136,7 @@ def test_tiled_aoas_and_binned_kernels_match_pallas(dtype):
     qp = [_sentinel_padded(q, 64, dtype, 0.0) for q in (qx, qy)]
     kw = dict(area=1.0, m_real=500, block_q=64, block_d=128)
     nbins = binned_nbins(10, 128)
-    with jax.enable_x64(dtype == np.float64):
+    with enable_x64(dtype == np.float64):
         data = j_soa_to_aoas(*(jnp.asarray(p) for p in pads))
         z_a, a_a = j_tiled_aoas(data, jnp.asarray(qp[0])[None], jnp.asarray(qp[1])[None],
                                 params=JParams(**P), interpret=True, **kw)
@@ -169,7 +169,7 @@ def test_plan_data_and_block_q_equal_jax(golden, impl, layout):
     for dtype in DTYPES:
         dx, dy, dz, _, _ = _inputs(golden, "ragged", dtype)
         kw = dict(area=1.0, impl=impl, layout=layout, block_q=256, block_d=128)
-        with jax.enable_x64(dtype == np.float64):
+        with enable_x64(dtype == np.float64):
             jp = j_build_plan(dx, dy, dz, params=JParams(**P), **kw)
             jdata = [np.asarray(d) for d in jp.data]
         plan = build_plan(dx, dy, dz, params=AIDWParams(**P), device="cpu", **kw)
@@ -191,9 +191,10 @@ def test_soa_only_rejections_match_jax():
             j_build_plan(dx, dy, dz, params=JParams(**P), impl=impl, **kw)
         with pytest.raises(ValueError, match="SoA-only"):
             build_plan(dx, dy, dz, params=AIDWParams(**P), impl=impl, device="cpu", **kw)
-    for impl in ("fused", "tiled_v2", "idw", "chunked"):
-        with pytest.raises(NotImplementedError, match="A8b"):
-            build_plan(dx, dy, dz, params=AIDWParams(**P), impl=impl, area=1.0, device="cpu")
+    for impl in ("fused", "tiled_v2", "idw", "chunked"):  # their SoA plans build and run
+        plan = build_plan(dx, dy, dz, params=AIDWParams(**P), impl=impl, area=1.0, device="cpu")
+        z, a = execute(plan, dx[:7], dy[:7])
+        assert plan.layout == "soa" and z.shape == a.shape == (7,) and bool(torch.isfinite(z).all()), impl
 
 
 # ------------------------------------------------------------ the slice
@@ -204,7 +205,7 @@ def test_dense_matches_jax_execute(golden, impl, layout, dtype, batch):
     atol, rtol = TOL[dtype]
     dx, dy, dz, qx, qy = _inputs(golden, batch, dtype)
     kw = dict(area=1.0, impl=impl, layout=layout, block_q=64, block_d=128)
-    with jax.enable_x64(dtype == np.float64):
+    with enable_x64(dtype == np.float64):
         jp = j_build_plan(dx, dy, dz, params=JParams(**P), **kw)
         jz, ja = (np.asarray(v) for v in j_execute(jp, jnp.asarray(qx), jnp.asarray(qy)))
     plan = build_plan(dx, dy, dz, params=AIDWParams(**P), device="cpu", **kw)
@@ -343,8 +344,15 @@ def test_dense_wrappers_plain_on_cpu_refuse_the_rest():
 def test_naive_and_knn_sources_instantiate_the_same_k():
     from repro_torch.kernels.aidw_tiled import SUPPORTED_K
 
-    src = (_build.CSRC / "naive.cu").read_text()
-    assert sorted(SUPPORTED_K) == sorted(int(k) for k in re.findall(r"AIDW_NAIVE_CASE\((\d+)\)", src))
+    # knn.cu, naive.cu and fused.cu take their switch cases from the one list
+    # of aidw_common.cuh, which SUPPORTED_K reads; no source names a k itself
+    header = (_build.CSRC / "aidw_common.cuh").read_text()
+    listed = re.search(r"#define AIDW_K_LIST\(X\)(.*)", header).group(1)
+    assert SUPPORTED_K == tuple(int(k) for k in re.findall(r"X\((\d+)\)", listed)) == tuple(range(1, 17))
+    for lib, case in (("knn", "AIDW_K_CASE"), ("naive", "AIDW_NAIVE_CASE"), ("fused", "AIDW_FUSED_CASE")):
+        src = (_build.CSRC / _build.SOURCES[lib]).read_text()
+        assert f"AIDW_K_LIST({case})" in src, lib
+        assert not re.findall(rf"{case}\(\d+\)", src), lib
     for lib in ("knn", "weight", "naive"):
         text = (_build.CSRC / _build.SOURCES[lib]).read_text()
         assert '#include "aoas.cuh"' in text and "powf(" not in text

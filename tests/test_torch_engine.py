@@ -10,7 +10,6 @@ stats dict and the persistent-overflow streak, and the validations.
 
 import warnings
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -36,6 +35,7 @@ from repro_torch.engine import (
 from repro_torch.engine.execute import _grid_layout
 from repro_torch.errors import CapacityOverflowWarning, PathologicalGridWarning
 from repro_torch.kernels import aidw
+from test_torch_core import enable_x64
 
 ALPHA_ATOL, Z_RTOL = 1e-6, 1e-5
 P = dict(k=10, area=1.0)
@@ -94,7 +94,7 @@ def _assert_plan_state_equal(jp, tp):
 def test_grid_plan_state_equal(kind, dtype):
     kw = dict(target_occupancy=4.0) if kind == "corners" else {}
     m = 800 if kind == "corners" else 3000
-    with jax.enable_x64(dtype == np.float64):
+    with enable_x64(dtype == np.float64):
         jp, tp = _plans(_dataset(kind, dtype, m=m), impl="grid", **kw)
     _assert_plan_state_equal(jp, tp)
     if kind == "corners":
@@ -247,9 +247,10 @@ def test_persistent_overflow_streak_and_warning():
 def test_validations_and_unported_options():
     data = _dataset("uniform", m=256)
     kw = dict(params=AIDWParams(**P), device="cpu")
-    for impl, item in (("tiled_v2", "A8b"), ("fused", "A8b"), ("chunked", "A8b"), ("idw", "A8b")):
-        with pytest.raises(NotImplementedError, match=item):
-            build_plan(*data, impl=impl, **kw)
+    # the last four impls of the reference build and run
+    for impl in ("tiled_v2", "fused", "chunked", "idw"):
+        z, a = execute(build_plan(*data, impl=impl, area=1.0, **kw), data[0][:9], data[1][:9])
+        assert z.shape == a.shape == (9,) and bool(torch.isfinite(z).all() & torch.isfinite(a).all()), impl
     for bad in (dict(farfield_rtol=0.0), dict(farfield_rtol=-1e-3), dict(farfield_radius=0)):
         with pytest.raises(ValueError, match="farfield_r"):
             build_plan(*data, impl="grid", phase2="farfield", **bad, **kw)
@@ -283,8 +284,12 @@ def test_ops_aidw_matches_engine(impl):
     z2, a2 = execute(plan, qx, qy)
     np.testing.assert_array_equal(_np(z), _np(z2))
     np.testing.assert_array_equal(_np(a), _np(a2))
-    for impl in ("fused", "tiled_v2", "idw", "chunked"):
-        with pytest.raises(NotImplementedError):
-            aidw(*data, qx, qy, area=1.0, impl=impl, device="cpu")
+    for other in ("fused", "tiled_v2"):
+        z3, a3 = aidw(*data, qx, qy, params=AIDWParams(**P), area=1.0, impl=other, device="cpu")
+        z4, a4 = execute(build_plan(*data, params=AIDWParams(**P), area=1.0, impl=other, device="cpu"), qx, qy)
+        assert torch.equal(z3, z4) and torch.equal(a3, a4), other
+    for own_entry in ("idw", "chunked"):  # they have their own entry points, as in the reference
+        with pytest.raises(ValueError, match="impl must be one of"):
+            aidw(*data, qx, qy, area=1.0, impl=own_entry, device="cpu")
     with pytest.raises(ValueError, match="SoA-only"):
         aidw(*data, qx, qy, area=1.0, impl="binned", layout="aoas", device="cpu")

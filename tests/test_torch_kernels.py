@@ -5,15 +5,12 @@ B1 is ``aidw_tiled.py:_knn_kernel_soa`` (shared data row and dense candidate
 rows), B3 ``aidw_grid.py:_knn_kernel_skip`` (candidate rows with a partial
 tile table), B2 ``aidw_tiled.py:_weight_kernel_soa``.  Tolerances: alpha
 within 1e-6 absolute and z within 1e-5 relative in float32, 1e-12 in float64
-(the float64 JAX reference under ``jax.enable_x64(True)``).  The CUDA kernels
+(the float64 JAX reference under JAX's x64 context, ``test_torch_core.enable_x64``).  The CUDA kernels
 themselves are held against these plain versions on the card by
 ``chip_smoke.py``; here a CPU tensor takes the plain version and any other
 non-CUDA tensor is refused.
 """
 
-import re
-
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -39,6 +36,7 @@ from repro_torch.kernels.aidw_grid import (
     phase2_weights_full,
 )
 from repro_torch.kernels.aidw_tiled import knn_alpha, weight_sweep
+from test_torch_core import enable_x64
 
 DTYPES = [np.float32, np.float64]
 TOL = {np.float32: (1e-6, 1e-5), np.float64: (1e-12, 1e-12)}
@@ -46,7 +44,7 @@ P = dict(k=10, area=1.0)
 
 
 def _x64(dtype):
-    return jax.enable_x64(dtype == np.float64)
+    return enable_x64(dtype == np.float64)
 
 
 def _np(t):
@@ -247,17 +245,17 @@ def test_tile_table_needs_one_row_per_block():
 
 
 def test_kernel_build_flags_and_interface():
-    cmd = _build.nvcc_command("knn", _build.BUILD_DIR / "x.so")
+    cmd = _build.nvcc_command("knn", _build.build_dir() / "x.so")
     assert "arch=compute_90a,code=sm_90a" in cmd
     assert not any("fast_math" in c or "fast-math" in c for c in cmd)
     assert {"-O3", "-shared", "-fPIC"} <= set(cmd)
-    assert set(_build.SOURCES) == {"knn", "weight", "near", "far", "far_node", "naive"}
+    assert set(_build.SOURCES) == {"knn", "weight", "near", "far", "far_node", "naive", "fused"}
     for name, (lib, argtypes) in _build.ENTRY_POINTS.items():
         assert lib in _build.SOURCES
         assert (_build.CSRC / _build.SOURCES[lib]).read_text().count(name.rsplit("_", 1)[0]) >= 1
     src = "".join((_build.CSRC / f).read_text() for f in _build.SOURCES.values())
     assert "powf(" not in src and "atomicAdd" not in src
-    assert str(_build.library_path("knn")).startswith(str(_build.BUILD_DIR))
+    assert str(_build.library_path("knn")).startswith(str(_build.build_dir()))
     if not _build.os.path.exists(_build.nvcc_path()):
         with pytest.raises(RuntimeError, match="nvcc not found"):
             _build.build_all()
@@ -267,5 +265,5 @@ def test_supported_k_matches_kernel_dispatch():
     from repro_torch.kernels.aidw_tiled import SUPPORTED_K
 
     src = (_build.CSRC / "knn.cu").read_text()
-    assert sorted(SUPPORTED_K) == sorted(int(k) for k in re.findall(r"AIDW_K_CASE\((\d+)\)", src))
-    assert 10 in SUPPORTED_K and 5 in SUPPORTED_K
+    assert "switch (k) {\n    AIDW_K_LIST(AIDW_K_CASE)" in src  # the cases come from the shared list
+    assert SUPPORTED_K == tuple(range(1, 17)) and 10 in SUPPORTED_K and 5 in SUPPORTED_K

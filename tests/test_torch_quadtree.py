@@ -19,7 +19,7 @@ package's, on the CPU, at the shapes of ``tests/engine/test_quadtree.py``
   measured error within the proved bound in float32 and float64, the
   overflow arm bitwise the exact plan's, the validations.
 
-The float64 JAX references are made under ``jax.enable_x64(True)``.  The
+The float64 JAX references are made under JAX's x64 context (``test_torch_core.enable_x64``).  The
 CUDA kernel itself is held against the plain version on the card by
 ``chip_smoke.py``.
 """
@@ -29,7 +29,6 @@ import importlib
 import os
 import warnings
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -53,6 +52,7 @@ from repro_torch.engine.plan import QT_ARRAYS
 from repro_torch.errors import UnprovableRtolWarning
 from repro_torch.kernels import _build
 from repro_torch.kernels.aidw_grid import block_rectangles, phase2_far_nodes, phase2_far_nodes_plain
+from test_torch_core import enable_x64
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "aidw_golden.npz")
 DTYPES = [np.float32, np.float64]
@@ -68,7 +68,7 @@ def _np(t):
 
 
 def _x64(dtype):
-    return jax.enable_x64(dtype == np.float64)
+    return enable_x64(dtype == np.float64)
 
 
 def _field(x, y):

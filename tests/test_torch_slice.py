@@ -5,14 +5,13 @@ fixture; and a JAX plan carried across with ``plan_from_reference``.
 
 Tolerances: alpha within 1e-6 absolute and z within 1e-5 relative in
 float32; 1e-12 in float64, with the float64 JAX reference made under
-``jax.enable_x64(True)``.  The golden gate is the one of
+JAX's x64 context (``test_torch_core.enable_x64``).  The golden gate is the one of
 ``tests/test_golden.py``: RTOL 5e-4 / ATOL 5e-5.
 """
 
 import dataclasses
 import os
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,6 +22,7 @@ from repro.engine import build_plan as j_build_plan
 from repro.engine import execute as j_execute
 from repro_torch.core.aidw import AIDWParams
 from repro_torch.engine import build_plan, execute, plan_from_reference
+from test_torch_core import enable_x64
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "aidw_golden.npz")
 RTOL, ATOL = 5e-4, 5e-5
@@ -47,7 +47,7 @@ def test_slice_matches_jax_execute(golden, impl, pipeline, dtype):
     k, area = int(golden["k"]), float(golden["area"])
     dx, dy, dz, qx, qy = _batch(golden, "clustered", dtype)
     kw = dict(area=area, impl=impl, pipeline=pipeline, block_q=64, block_d=128)
-    with jax.enable_x64(dtype == np.float64):
+    with enable_x64(dtype == np.float64):
         jp = j_build_plan(dx, dy, dz, params=JParams(k=k, area=area), **kw)
         jz, ja = j_execute(jp, jnp.asarray(qx), jnp.asarray(qy))
         jz, ja = np.asarray(jz), np.asarray(ja)
