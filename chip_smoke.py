@@ -9,19 +9,23 @@ CUDA toolkit.  It builds the hand-written kernels from
 in order (a failed check raises, and the script exits nonzero):
 
 1. build: each kernel's registers and spills, as ``ptxas -v`` prints them,
-   and the special-function-unit (MUFU) ops of the weight kernel's inner
-   loop, from its SASS;
+   and the SASS instructions and special-function-unit (MUFU) ops per pair
+   of the float32 weight kernel's inner loop, which must take at most the
+   two MUFU ops a pair the function needs;
 2. each kernel against its plain PyTorch version on the card, float32 and
-   float64, at the shapes the main path gives it (m = 2^20);
+   float64, at the shapes the main path gives it (m = 2^20), and B2 at a
+   4,096-point plan tile (the dynamic-shared-memory path) with its control;
 3. the golden fixture (``tests/fixtures/aidw_golden.npz``) for ``grid`` with
    both pipelines and for ``tiled``, float32 and float64;
-4. run-to-run determinism and NaN/Inf query hardening;
+4. run-to-run determinism and NaN/Inf query hardening; B2 on a 65,536
+   batch gives the bits of B2 on slices of it (other block sizes);
 5. the serving run of the ``aidw-pod-1m`` configuration: clustered data,
    m = 2^20, k = 10, three batches of 65,536 uniform queries and one of 2^20
    on the main path (``impl="grid"``, ``pipeline="prefetch"``), then one
    batch through ``pipeline="dense"`` and one through ``impl="tiled"``; each
    path with its launch counts, sampled queries held against a float64
-   brute-force reference;
+   brute-force reference, and on the main path the kernel's error there
+   within 2x its plain version's on the same queries;
 6. each kernel timed with CUDA events at the serving batch's shapes, and
    B1 also on the ``tiled`` impl's shared data row;
 7. the far-field kernels (``phase2="farfield"``) against their plain
@@ -90,7 +94,10 @@ in order (a failed check raises, and the script exits nonzero):
     sampled queries held against a float64 brute-force reference (idw
     against a float64 ``idw_reference``);
 29. B11-B13 timed with CUDA events at that shape, float32 and float64, with
-    their bounds.
+    their bounds;
+30. B2 (float32) timed with CUDA events at 128 and 256 threads a block at
+    8,192, 65,536 and 2^20 queries, beside the wrapper's choice
+    (``kernels/aidw_tiled.py: weight_launch``), both giving the same bits.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Without a CUDA card,
@@ -128,6 +135,9 @@ PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 PEAK_BYTES = 3.35e12
 # special-function units: 16 results per SM per clock, 132 SMs, 1.98 GHz boost
 PEAK_SFU = 132 * 16 * 1.98e9
+# what a float32 weight pair needs of them: one log2 and one exp2 (the
+# float64 weights take precise exp/log on the FP64 pipes)
+MUFU_PER_PAIR = 2
 # instruction issue: 4 warp schedulers x 32 threads per SM per clock
 PEAK_ISSUE = 132 * 128 * 1.98e9
 
@@ -261,6 +271,24 @@ def inner_loop_sass(cuobjdump: str, lib: Path, kernel: str):
     return len(body) / per, {op: body.count(op) / per for op in sorted(set(body)) if op.startswith("MUFU")}
 
 
+def weight_func(aoas=False, const_ah=False):
+    """Mangled-name prefix of the float32 ``weight_kernel<float, aoas, const_ah>``."""
+    return f"_ZN4aidw13weight_kernelIfLb{int(aoas)}ELb{int(const_ah)}EE"
+
+
+_SASS = {}
+
+
+def kernel_sass(lib, func):
+    """``inner_loop_sass`` of ``func`` in the built library ``lib``, read once."""
+    from repro_torch.kernels import _build
+
+    if (lib, func) not in _SASS:
+        cuobjdump = str(Path(_build.nvcc_path()).parent / "cuobjdump")
+        _SASS[lib, func] = inner_loop_sass(cuobjdump, _build.library_path(lib), func)
+    return _SASS[lib, func]
+
+
 def main():
     import torch
 
@@ -282,6 +310,7 @@ def main():
     from repro_torch.kernels.aidw_tiled import (
         knn_alpha,
         knn_alpha_plain,
+        weight_launch,
         weight_sweep,
         weight_sweep_plain,
     )
@@ -320,13 +349,14 @@ def main():
             print(f"  ptxas {src}: {name[:72]}: {regs} registers, spill stores {st} B, loads {ld} B")
     print(f"  ptxas: {len(entries)} kernels, at most {max(e[2] for e in entries)} registers, "
           f"{sum(e[3] + e[4] for e in entries)} spill bytes in all")
-    cuobjdump = str(Path(_build.nvcc_path()).parent / "cuobjdump")
-    sass = inner_loop_sass(cuobjdump, paths["weight"], "_ZN4aidw13weight_kernelIfLb0ELb0EE")
-    if sass is None:
-        print("  weight_kernel<float> SASS: no per-pair loop found; MUFU count not measured")
-    else:
-        print(f"  weight_kernel<float> SASS per-pair loop: {sass[0]} instructions per pair, "
-              f"MUFU per pair {sass[1]}")
+    # the float32 weight kernel's per-pair loop: its MUFU ops are held to
+    # what the function needs (the bounds below take that, not this count)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sass = kernel_sass("weight", weight_func())
+    check(sass is not None, "the SASS of weight_kernel<float> has a per-pair loop")
+    print(f"  weight_kernel<float> SASS per-pair loop: {sass[0]} instructions per pair, MUFU per pair {sass[1]}")
+    check(sum(sass[1].values()) <= MUFU_PER_PAIR, f"weight_kernel<float> takes at most {MUFU_PER_PAIR} MUFU ops a pair")
+    print(f"  {sms} SMs; the 65,536 batch runs {weight_launch(SERVING[0][0], sms)} threads a block")
 
     wl = AIDW_WORKLOADS["aidw-pod-1m"]
     check(wl.m == M_FULL and wl.n == M_FULL and wl.k == 10, "aidw-pod-1m is m = n = 2^20, k = 10")
@@ -367,6 +397,27 @@ def main():
         e_gone = float(((z_gone - z_p) / z_p).abs().max())
         print(f"  B2 {name}: a sweep without its first tile is off by {e_gone:.3e} relative")
         check(e_gone > b2_rtol(dtype), "the B2 tolerance catches a lost tile")
+        # a plan tile larger than a 32 KiB stage: one tile a stage, in
+        # dynamic shared memory past 48 KiB (64 KiB in float32, 128 KiB in
+        # float64).  A sequential sum's rounding bound grows with its length,
+        # (n - 1) u sum|x|, so the 64 ulps set for 512-point tiles scale by
+        # 4096 / 512; a sweep that loses 512 points stays outside it
+        big = 4096
+        tol_big = b2_rtol(dtype) * big / 512
+        z_big = weight_sweep(qxc, qyc, a_k * 0.5, dx, dy, dz, tile_d=big, eps=params.exact_hit_eps)
+        z_big_p = weight_sweep_plain(qxc, qyc, a_k * 0.5, dx, dy, dz, tile_d=big, eps=params.exact_hit_eps)
+        e_big = float(((z_big - z_big_p) / z_big_p).abs().max())
+        report(f"B2 {name} with tile_d {big} relative", e_big, tol_big)
+        check(e_gone > tol_big, "the large-tile tolerance catches a sweep that loses 512 points")
+        # its own control: the kernel at that tile without its first tile
+        lost = torch.zeros_like(dx, dtype=torch.bool)
+        lost[:big] = True
+        z_lost = weight_sweep(qxc, qyc, a_k * 0.5, torch.where(lost, sent, dx), torch.where(lost, sent, dy), dz,
+                              tile_d=big, eps=params.exact_hit_eps)
+        e_lost = float(((z_lost - z_big_p) / z_big_p).abs().max())
+        print(f"  B2 {name} with tile_d {big}: sound {e_big:.3e}, limit {tol_big:.3e}, "
+              f"without its first tile {e_lost:.3e} relative")
+        check(e_lost > tol_big, f"the tile_d {big} tolerance catches the kernel losing its first tile")
 
         plan = build_plan(dx, dy, dz, params=params, area=1.0, impl="grid")
         lay = _grid_layout(plan, qx, qy)
@@ -426,7 +477,20 @@ def main():
     check(torch.equal(zh[~bad], zd[~bad]) and torch.equal(ah[~bad], ad[~bad]),
           "finite queries unchanged bit for bit")
     print(f"  {int(bad.sum())} non-finite queries -> NaN; finite slots bitwise unchanged: True")
-    del plan, z1, z2, a1, a2
+    # a query's B2 bits do not depend on the batch: the whole 65,536 batch
+    # against slices of it, which take another block size
+    dxp, dyp, dzp = plan.data
+    sweep = dict(tile_d=plan.block_d, eps=params.exact_hit_eps)
+    whole = weight_sweep(qx, qy, a1 * 0.5, dxp, dyp, dzp, **sweep)
+    for lo, hi in ((0, 256), (1000, 1256), (0, 8192)):
+        part = weight_sweep(qx[lo:hi].contiguous(), qy[lo:hi].contiguous(), (a1[lo:hi] * 0.5).contiguous(), dxp,
+                            dyp, dzp, **sweep)
+        same = torch.equal(part, whole[lo:hi])
+        print(f"  B2 on queries {lo}:{hi} ({weight_launch(hi - lo, sms)} threads) vs the whole batch "
+              f"({weight_launch(qx.shape[0], sms)} threads): bitwise equal {same}")
+        check(same, f"B2 on queries {lo}:{hi} gives the whole batch's bits")
+    check(torch.equal(whole, z1), "B2 on the batch gives the path's z")
+    del plan, z1, z2, a1, a2, whole
 
     # ---------------------------------------------------- 5. serving run
     print("== 5. serving run: aidw-pod-1m, clustered m = 2^20, k = 10, float32", flush=True)
@@ -440,9 +504,11 @@ def main():
             zz, aa = aidw_reference(*d64, qx[part].double(), qy[part].double(), params, area=1.0)
             zr.append(zz)
             ar.append(aa)
-        ez, ea = maxerr(z[idx], torch.cat(zr)), maxerr(a[idx], torch.cat(ar))
+        zr = torch.cat(zr)
+        ez, ea = maxerr(z[idx], zr), maxerr(a[idx], torch.cat(ar))
         report(f"{tag} z vs f64 reference", ez, z_tol(torch.float32, M_FULL, float(dz.abs().max())))
         report(f"{tag} alpha vs f64 reference", ea, 1e-5)
+        return idx, zr, ez
 
     torch.cuda.reset_peak_memory_stats()
     sync()
@@ -473,10 +539,20 @@ def main():
     check(main_launches["knn_skip"] > 0 and main_launches["weight_soa"] > 0,
           "the main path launched B3 and B2")
     print(f"  max memory allocated {torch.cuda.max_memory_allocated()} bytes")
+    dxp, dyp, dzp = plan.data
     for (n, seed), (qx, qy), (z, a, _, _) in zip(SERVING, batches, results):
         check(bool(torch.isfinite(z).all() and torch.isfinite(a).all()) and z.shape == (n,),
               f"finite outputs of shape ({n},)")
-        f64_check(f"batch n={n} seed={seed}", qx, qy, z, a, seed)
+        idx, zr, ez = f64_check(f"batch n={n} seed={seed}", qx, qy, z, a, seed)
+        # the same sampled queries through B2's plain version on the path's
+        # alpha: the kernel's f32 weights (lg2/ex2 on the special-function
+        # units) may cost no more than rounding-level noise against it
+        z_pl = weight_sweep_plain(qx[idx], qy[idx], a[idx] * 0.5, dxp, dyp, dzp, tile_d=plan.block_d,
+                                  eps=params.exact_hit_eps)
+        ez_pl = maxerr(z_pl, zr)
+        print(f"  batch n={n} seed={seed}: z vs f64 reference, kernel {ez:.3e}, plain version {ez_pl:.3e} "
+              f"(ratio {ez / ez_pl if ez_pl else math.inf:.3f}, limit 2)", flush=True)
+        check(ez <= 2 * ez_pl, f"batch n={n}: the kernel's z error within 2x its plain version's")
 
     # where one serving batch's device time goes
     qx, qy = batches[0]
@@ -546,26 +622,32 @@ def main():
     # compare, and exp and log counted as one operation each
     flops = {"knn_skip": 6, "knn_soa": 6, "weight_soa": 13}
 
-    def bound(n_pairs, n_bytes, ops, dtype="float32"):
-        t_ops, t_bytes = n_pairs * ops / PEAK_FLOPS[dtype], n_bytes / PEAK_BYTES
+    def bound(n_pairs, n_bytes, ops, dtype="float32", sfu_ops=0):
+        # the larger of the bytes over the memory rate and the operations
+        # over their peak: n_pairs * ops on the FP32 (FP64) pipes, sfu_ops
+        # MUFU ops (MUFU_PER_PAIR a float32 weight pair) on the
+        # special-function units
+        t_ops = max(n_pairs * ops / PEAK_FLOPS[dtype], sfu_ops / PEAK_SFU)
+        t_bytes = n_bytes / PEAK_BYTES
         return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
+    sfu = {"weight_soa": pairs["weight_soa"] * MUFU_PER_PAIR}
     rows_out = []
     for name, (kern, plain, reps) in calls.items():
         ms = time_ms(kern, reps)
         plain_ms = time_ms(plain, 1, warmup=0)
-        bound_ms, bound_by = bound(pairs[name], row_bytes[name], flops[name])
+        bound_ms, bound_by = bound(pairs[name], row_bytes[name], flops[name], sfu_ops=sfu.get(name, 0))
         launches = path_launches["grid/dense" if name == "knn_soa" else "grid/prefetch"][name]
         rows_out.append(dict(name=name, route="cuda", **KERNELS[name], launches=launches,
                              max_abs_err=errs[name], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                              bound_by=bound_by, library_ms=None))
         print(f"  {name}: {ms} ms (plain {plain_ms} ms, bound {bound_ms} ms, {pairs[name]} pairs)",
               flush=True)
-    if sass is not None:
-        p2 = pairs["weight_soa"]
-        print(f"  weight_soa beside its bound: MUFU {1e3 * p2 * sum(sass[1].values()) / PEAK_SFU} ms "
-              f"({sass[1]} per pair at 16/SM/clock); instruction issue {1e3 * p2 * sass[0] / PEAK_ISSUE} "
-              f"ms ({sass[0]} SASS instructions per pair at 128/SM/clock)")
+    p2 = pairs["weight_soa"]
+    print(f"  weight_soa beside its bound: flops {1e3 * p2 * flops['weight_soa'] / PEAK_FLOPS['float32']} ms "
+          f"({flops['weight_soa']} a pair); MUFU {1e3 * p2 * MUFU_PER_PAIR / PEAK_SFU} ms "
+          f"({MUFU_PER_PAIR} per pair at 16/SM/clock); instruction issue {1e3 * p2 * sass[0] / PEAK_ISSUE} "
+          f"ms ({sass[0]} SASS instructions per pair at 128/SM/clock)")
 
     # B1 on the `tiled` impl's shared data row: every query walks all m points
     qx_t, qy_t = qx.contiguous(), qy.contiguous()
@@ -593,6 +675,7 @@ def main():
     rows_out += fused_v2_idw_phases(
         dev=dev, params=params, golden=golden, data=data, queries=queries, sync=sync, maxerr=maxerr,
         time_ms=time_ms, bound=bound, z_tol=z_tol, b2_rtol=b2_rtol)
+    weight_shape_phase(params=params, data=data, queries=queries, time_ms=time_ms)
     print(f"  total {time.time() - t_start:.1f} s")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1493,6 +1576,9 @@ def dense_phases(*, dev, params, golden, eps, data, queries, sync, maxerr, time_
     vals = {"naive_soa": (3 * M_FULL, 4 * n_q), "naive_aoas": (4 * M_FULL, 4 * n_q),
             "knn_aoas": (4 * M_FULL, 3 * n_q), "weight_aoas": (4 * M_FULL, 4 * n_q),
             "knn_binned": (2 * M_FULL, 3 * n_q), "knn_soa": (2 * M_FULL, 3 * n_q), "weight_soa": (3 * M_FULL, 4 * n_q)}
+    # the kernels with a float32 weight pass: MUFU_PER_PAIR a pair on the
+    # special-function units, a term of the bound
+    sfu_kernels = {"naive_soa", "naive_aoas", "weight_aoas", "weight_soa"}
     times, rows = {}, []
     for dtype in (f32, f64):
         name = dtname(dtype)
@@ -1521,7 +1607,8 @@ def dense_phases(*, dev, params, golden, eps, data, queries, sync, maxerr, time_
             # one timed launch, no warm-up
             ms = time_ms(kern, 3) if dtype == f32 else time_ms(kern, 1, warmup=0)
             n_vals, q_vals = vals[kname]
-            bound_ms, bound_by = bound(ops[kname], (n_vals + q_vals) * dtype.itemsize, 1, name)
+            sfu_ops = n_pairs * MUFU_PER_PAIR if dtype == f32 and kname in sfu_kernels else 0
+            bound_ms, bound_by = bound(ops[kname], (n_vals + q_vals) * dtype.itemsize, 1, name, sfu_ops=sfu_ops)
             times[kname, dtype] = ms
             line = f"  {kname} {name}: {ms} ms (bound {bound_ms} ms by {bound_by}"
             if dtype == f32 and plain is not None:
@@ -1766,6 +1853,9 @@ def fused_v2_idw_phases(*, dev, params, golden, data, queries, sync, maxerr, tim
     # 13.  Bytes: each input read once, each output written once (values;
     # B12's merge votes are one byte per CUDA block and tile)
     ops = {"fused": 19 * n_pairs, "knn_v2": 6 * n_pairs, "idw": 13 * n_pairs}
+    # the kernels with a float32 weight pass: MUFU_PER_PAIR a pair on the
+    # special-function units, a term of the bound
+    sfu_kernels = {"fused", "idw"}
     rows = []
     for dtype in (f32, f64):
         name = dtname(dtype)
@@ -1788,7 +1878,8 @@ def fused_v2_idw_phases(*, dev, params, golden, data, queries, sync, maxerr, tim
         for kname, (kern, plain) in calls.items():
             # float64 launches take of the order of a second: one timed launch after phase 28's
             ms = time_ms(kern, 3) if dtype == f32 else time_ms(kern, 1)
-            bound_ms, bound_by = bound(ops[kname], nbytes[kname], 1, name)
+            sfu_ops = n_pairs * MUFU_PER_PAIR if dtype == f32 and kname in sfu_kernels else 0
+            bound_ms, bound_by = bound(ops[kname], nbytes[kname], 1, name, sfu_ops=sfu_ops)
             line = f"  {kname} {name}: {ms} ms (bound {bound_ms} ms by {bound_by}"
             if dtype == f32:
                 plain_ms = time_ms(plain, 1, warmup=0)
@@ -1797,16 +1888,57 @@ def fused_v2_idw_phases(*, dev, params, golden, data, queries, sync, maxerr, tim
                                  launches=sum(v.get(kname, 0) for v in launches.values()), max_abs_err=errs[kname],
                                  ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
             print(line + ")", flush=True)
-    # the per-pair weight loop of each float32 sweep, from the SASS (phase 1 reads B2's)
-    cuobjdump = str(Path(_build.nvcc_path()).parent / "cuobjdump")
-    for kname, lib, func in (("weight_soa", "weight", "_ZN4aidw13weight_kernelIfLb0ELb0EE"),
-                             ("idw", "weight", "_ZN4aidw13weight_kernelIfLb0ELb1EE"),
-                             ("fused", "fused", "_ZN4aidw12fused_kernelIfLi10EEE")):
-        sass = inner_loop_sass(cuobjdump, _build.library_path(lib), func)
+    # the per-pair weight loop of each float32 sweep, from the SASS
+    for kname, lib, func in (("weight_soa", "weight", weight_func()),
+                             ("weight_aoas", "weight", weight_func(aoas=True)),
+                             ("idw", "weight", weight_func(const_ah=True)),
+                             ("naive_soa", "naive", f"_ZN4aidw12naive_kernelIfLi{params.k}ELb0EEE"),
+                             ("fused", "fused", f"_ZN4aidw12fused_kernelIfLi{params.k}EEE")):
+        sass = kernel_sass(lib, func)
         print(f"  {kname} float32 SASS weight loop: " + ("not found" if sass is None else
               f"{sass[0]} instructions per pair, MUFU per pair {sass[1]}"))
     print(f"  phase 29: {time.time() - t_phase:.1f} s", flush=True)
     return rows
+
+
+def weight_shape_phase(*, params, data, queries, time_ms):
+    """Phase 30: B2 (float32, SoA, m = 2^20) timed with CUDA events at 128 and
+    256 threads a block at the masked arm's size, the serving batch's and
+    2^20 queries, beside the wrapper's choice; both give the bits of the
+    wrapper's launch."""
+    import torch
+
+    from repro_torch.engine import build_plan
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.aidw_tiled import weight_launch, weight_sweep
+
+    print("== 30. B2 block sizes (CUDA events, float32, m = 2^20)", flush=True)
+    t_phase = time.time()
+    block_d = 512
+    dxp, dyp, dzp = build_plan(*data(torch.float32), params=params, area=1.0, impl="tiled", block_d=block_d).data
+    fn = _build.entry("aidw_weight_f32")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for n in (8192, SERVING[0][0], M_FULL):
+        qx, qy = queries(n, 30)
+        ah = torch.full_like(qx, 1.0)
+        ref = weight_sweep(qx, qy, ah, dxp, dyp, dzp, tile_d=block_d, eps=params.exact_hit_eps)
+        stream = torch.cuda.current_stream().cuda_stream
+        got = {}
+        for threads in (128, 256):
+            out = torch.empty_like(qx)
+
+            def run():
+                _build.check(fn(qx.data_ptr(), qy.data_ptr(), ah.data_ptr(), dxp.data_ptr(), dyp.data_ptr(),
+                                dzp.data_ptr(), n, dxp.shape[0], block_d, threads, float(params.exact_hit_eps),
+                                1e-30, out.data_ptr(), stream), "weight launch")
+
+            got[threads] = time_ms(run, 1 if n == M_FULL else 3)
+            check(torch.equal(out, ref), f"B2 with {threads} threads gives the wrapper's bits (n={n})")
+        best = min(got, key=got.get)
+        rule = weight_launch(n, sms)
+        print(f"  n={n}: 128 threads {got[128]} ms, 256 threads {got[256]} ms; fastest {best}; "
+              f"weight_launch picks {rule} ({sms} SMs); both bitwise equal", flush=True)
+    print(f"  phase 30: {time.time() - t_phase:.1f} s", flush=True)
 
 
 if __name__ == "__main__":

@@ -25,6 +25,7 @@ they are the reference the kernels are held against.
 
 from __future__ import annotations
 
+import functools
 import math
 import re
 
@@ -48,7 +49,27 @@ def _k_list() -> tuple[int, ...]:
 SUPPORTED_K = _k_list()
 
 _KNN_THREADS = 256
-_WEIGHT_THREADS = 256
+
+
+def weight_launch(n: int, sms: int) -> int:
+    """Threads a block of the weight kernel (``csrc/weight.cu``, one query a
+    thread) for a batch of ``n`` queries on a card with ``sms``
+    multiprocessors.  A batch that gives every SM a 256-thread block takes
+    256 threads, a smaller one 128, so its warps reach twice as many SMs
+    (the masked arm of the far-field plans sweeps 7,424-9,216 queries of a
+    65,536 batch of ``aidw-pod-1m``; ``chip_smoke.py`` phase 30 times
+    both).  A query's z does not depend on it."""
+    return 256 if n >= 256 * sms else 128
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _weight_threads(q: torch.Tensor) -> int:
+    """``weight_launch`` for the batch ``q`` on its card."""
+    return weight_launch(q.shape[0], _sm_count(q.device.index))
 
 
 def _on_card(name: str, *tensors) -> bool:
@@ -222,7 +243,7 @@ def weight_sweep(qx, qy, alpha_half, dx, dy, dz, *, tile_d: int, eps: float):
     out = torch.empty_like(qx)
     fn = _build.entry(f"aidw_weight_{_suffix(qx.dtype)}")
     err = fn(qx.data_ptr(), qy.data_ptr(), alpha_half.data_ptr(), dx.data_ptr(), dy.data_ptr(),
-             dz.data_ptr(), qx.shape[0], m, tile_d, _WEIGHT_THREADS, float(eps), tiny_for(qx.dtype),
+             dz.data_ptr(), qx.shape[0], m, tile_d, _weight_threads(qx), float(eps), tiny_for(qx.dtype),
              out.data_ptr(), torch.cuda.current_stream(qx.device).cuda_stream)
     _build.check(err, "weight_sweep launch")
     _build.LAUNCHES["weight_soa"] += 1
@@ -295,7 +316,7 @@ def weight_sweep_aoas(qx, qy, alpha_half, data, *, tile_d: int, eps: float):
     out = torch.empty_like(qx)
     fn = _build.entry(f"aidw_weight_aoas_{_suffix(qx.dtype)}")
     err = fn(qx.data_ptr(), qy.data_ptr(), alpha_half.data_ptr(), data.data_ptr(), qx.shape[0], m, tile_d,
-             _WEIGHT_THREADS, float(eps), tiny_for(qx.dtype), out.data_ptr(),
+             _weight_threads(qx), float(eps), tiny_for(qx.dtype), out.data_ptr(),
              torch.cuda.current_stream(qx.device).cuda_stream)
     _build.check(err, "weight_sweep_aoas launch")
     _build.LAUNCHES["weight_aoas"] += 1

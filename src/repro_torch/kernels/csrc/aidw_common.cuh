@@ -7,7 +7,16 @@
 // _rn intrinsics, so nvcc cannot contract it into an FMA: d^2 then has the
 // same bits as the plain PyTorch version's, near-ties pick the same
 // neighbours, and the exact-hit test `min d^2 <= eps` flips the same way.
-// exp/log/cos/sqrt are the precise library functions (no fast math).
+// exp/log/cos/sqrt are the precise library functions (no fast math), with
+// one exception: the float32 weight of the exact sweep (pow_weight) is
+// 2^(-(alpha/2) log2 d^2) on the special-function units, lg2.approx and
+// ex2.approx, one MUFU op each.  Its rounding is dominated by t = (alpha/2)
+// ln d^2, whose float32 rounding alone is |t| 2^-24 relative in w (|t|
+// reaches 30 and more), so the units' errors (2^-22.6 absolute in log2,
+// about 2 ulps in 2^x) stay at that level.  The plain PyTorch versions
+// (kernels/_common.py: pow_weight) keep torch.exp/torch.log: the kernels
+// are held against them at 64 ulps of z, and the far-field kernels, whose
+// checks against their plain versions are bitwise, keep exp_p/log_p.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -124,25 +133,87 @@ __device__ __forceinline__ T kbest_alpha(const T (&best)[K], const AlphaConsts<T
   return alpha_from_r_obs(mul_rn(sum, T(1.0 / K)), c);
 }
 
-// One staged tile of the weight sweep (Eq. 1) for one query, with
-// neg_ah = -alpha / 2: w = exp(neg_ah * log(max(d^2, tiny))), the tile's
-// sum(w) and sum(w z) taken left to right and folded into the running totals
-// (weight.cu's order: the tile boundaries are the plan's block_d), and the
-// first minimum d^2 with its z, kept with a strict `<` across tiles.
-template <typename T>
-__device__ __forceinline__ void weight_tile_sums(T px, T py, T neg_ah, const T* sx, const T* sy, const T* sz,
-                                            int cnt, T tiny, T& sum_w, T& sum_wz, T& min_d2, T& hit_z) {
-  T tile_w = T(0), tile_wz = T(0);
-  for (int j = 0; j < cnt; ++j) {
-    const T d2 = sq_dist(px, py, sx[j], sy[j]);
-    const T zj = sz[j];
-    const T w = exp_p(mul_rn(neg_ah, log_p(d2 > tiny ? d2 : tiny)));
-    tile_w = add_rn(tile_w, w);
-    tile_wz = add_rn(tile_wz, mul_rn(w, zj));
-    if (d2 < min_d2) {
-      min_d2 = d2;
-      hit_z = zj;
+// The special-function units: lg2.approx.ftz.f32 (absolute error 2^-22.6
+// in log2 x) and ex2.approx.ftz.f32 (about 2 ulps), one MUFU op each, no
+// denormal fix-up.  ex2 of -inf is +0, of t >= 128 +inf; lg2 of +inf is +inf.
+__device__ __forceinline__ float lg2_sfu(float x) {
+  float y;
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ float ex2_sfu(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The weight of Eq. (1), with neg_ah = -alpha / 2: (max(d^2, tiny))^neg_ah.
+// float32: 2^(neg_ah * log2 x) on the special-function units (see the
+// header); float64: exp(neg_ah * log x) with the precise library
+// functions.  The clamp keeps kernels/_common.py's semantics: a NaN d^2
+// takes tiny, and a sentinel pad point (d^2 = +inf) gets log = +inf, t =
+// -inf and w = +0.  Every exact weight loop (weight_tile, below) takes its
+// weights from here, so all exact variants keep one set of bits.
+__device__ __forceinline__ float pow_weight(float neg_ah, float d2, float tiny) {
+  return ex2_sfu(mul_rn(neg_ah, lg2_sfu(d2 > tiny ? d2 : tiny)));
+}
+__device__ __forceinline__ double pow_weight(double neg_ah, double d2, double tiny) {
+  return exp_p(mul_rn(neg_ah, log_p(d2 > tiny ? d2 : tiny)));
+}
+
+// Points a weight loop takes per step (weight_group): their loads, d^2 and
+// weights are issued before the sums, so a warp has kWeightGroup
+// independent chains through the two MUFU latencies.
+constexpr int kWeightGroup = 4;
+
+// U pairs of the weight sweep (Eq. 1) for one query, in point order: the U
+// d^2 and weights first, then each point's weight added to the tile's
+// sum(w) and sum(w z) left to right, and the first minimum d^2 with its z
+// kept with a strict `<`.  The sums and the minimum see the points in the
+// same order whatever U is, so the bits do not depend on it.
+template <typename T, int U>
+__device__ __forceinline__ void weight_group(T px, T py, T neg_ah, const T (&x)[U], const T (&y)[U],
+                                             const T (&z)[U], T tiny, T& tile_w, T& tile_wz, T& min_d2,
+                                             T& hit_z) {
+  T d2[U], w[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) d2[u] = sq_dist(px, py, x[u], y[u]);
+#pragma unroll
+  for (int u = 0; u < U; ++u) w[u] = pow_weight(neg_ah, d2[u], tiny);
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    tile_w = add_rn(tile_w, w[u]);
+    tile_wz = add_rn(tile_wz, mul_rn(w[u], z[u]));
+    if (d2[u] < min_d2) {
+      min_d2 = d2[u];
+      hit_z = z[u];
     }
+  }
+}
+
+// One plan tile of the weight sweep for one query: points t0 <= j < t1,
+// fetched by point(j, x, y, z), in groups of kWeightGroup and the rest one
+// by one, summed into the tile's sum(w) and sum(w z), which are then folded
+// into the running totals (the tile boundaries are the plan's block_d).
+// The one tile loop of every exact sweep: weight.cu reads staged {x, y, z,
+// pad} vectors, fused.cu SoA shared arrays, naive.cu global memory, and all
+// keep one set of bits.
+template <typename T, typename Point>
+__device__ __forceinline__ void weight_tile(T px, T py, T neg_ah, int t0, int t1, Point point, T tiny, T& sum_w,
+                                            T& sum_wz, T& min_d2, T& hit_z) {
+  T tile_w = T(0), tile_wz = T(0);
+  int j = t0;
+  const int grp = t1 - (t1 - t0) % kWeightGroup;
+  for (; j < grp; j += kWeightGroup) {
+    T x[kWeightGroup], y[kWeightGroup], z[kWeightGroup];
+#pragma unroll
+    for (int u = 0; u < kWeightGroup; ++u) point(j + u, x[u], y[u], z[u]);
+    weight_group(px, py, neg_ah, x, y, z, tiny, tile_w, tile_wz, min_d2, hit_z);
+  }
+  for (; j < t1; ++j) {
+    T x[1], y[1], z[1];
+    point(j, x[0], y[0], z[0]);
+    weight_group(px, py, neg_ah, x, y, z, tiny, tile_w, tile_wz, min_d2, hit_z);
   }
   sum_w = add_rn(sum_w, tile_w);
   sum_wz = add_rn(sum_wz, tile_wz);

@@ -12,14 +12,16 @@
 // insertion, then computes alpha with knn.cu's epilogue: the same k-smallest
 // multiset, so the same bits as B1.  Alpha stays in a register and
 // alpha / 2 = alpha * 0.5 exactly.  Pass 2 stages x, y and z tile by tile
-// and runs weight.cu's tile loop (aidw_common.cuh: weight_tile_sums): each
+// and runs weight.cu's tile loop (aidw_common.cuh: weight_tile): each
 // tile summed left to right, the tile sums folded into running totals in
 // data order, the first minimum kept with a strict `<`.  So z is the bits of
 // weight.cu's z on B1's alpha, and the launch writes z and alpha, the only
 // outputs.
 //
-// What bounds it on an H100: instruction issue, as weight.cu: pass 2's
-// precise exp/log loop dominates, pass 1 adds kNN's 6 operations a pair.
+// What bounds it on an H100: instruction issue and the special-function
+// units, as weight.cu: pass 2's weight loop (aidw_common.cuh:
+// weight_tile, whose weights are pow_weight's lg2/ex2 in float32)
+// dominates, pass 1 adds kNN's 6 operations a pair.
 // Each CUDA block reads the data twice, from L2 after the first block.
 #include "aidw_common.cuh"
 
@@ -60,6 +62,11 @@ __global__ void fused_kernel(const T* __restrict__ qx, const T* __restrict__ qy,
   // ---- pass 2: the weight sweep at alpha / 2, in weight.cu's sum order
   const T neg_ah = -mul_rn(alpha, T(0.5));
   T sum_w = T(0), sum_wz = T(0), min_d2 = T(INFINITY), hit_z = T(0);
+  const auto point = [&](int j, T& x, T& y, T& z) {
+    x = sx[j];
+    y = sy[j];
+    z = sz[j];
+  };
   for (int base = 0; base < m; base += tile_d) {
     const int cnt = min(tile_d, m - base);
     for (int i = threadIdx.x; i < cnt; i += blockDim.x) {
@@ -68,7 +75,7 @@ __global__ void fused_kernel(const T* __restrict__ qx, const T* __restrict__ qy,
       sz[i] = dz[base + i];
     }
     __syncthreads();
-    weight_tile_sums(px, py, neg_ah, sx, sy, sz, cnt, tiny, sum_w, sum_wz, min_d2, hit_z);
+    weight_tile(px, py, neg_ah, 0, cnt, point, tiny, sum_w, sum_wz, min_d2, hit_z);
     __syncthreads();
   }
   if (live) {

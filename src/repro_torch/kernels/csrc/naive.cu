@@ -21,9 +21,13 @@
 // jnp.sum, whose order is XLA's; the results agree within the fp slack.
 // AOAS reads each (x, y, z, 0) struct with one float4 (two double2) load.
 //
-// What bounds it on an H100: instruction issue, as weight.cu: pass 2's
-// precise exp/log loop dominates, and pass 1 adds kNN's 6 operations a
-// pair.  Each CUDA block reads the whole data set once per pass, from L2
+// Pass 2 runs weight.cu's tile loop (aidw_common.cuh: weight_tile) on
+// points read from global memory, so its weights (pow_weight: lg2/ex2 on
+// the special-function units in float32) and sums are weight.cu's.
+//
+// What bounds it on an H100: instruction issue and the special-function
+// units, as weight.cu: pass 2's weight loop dominates, and pass 1 adds
+// kNN's 6 operations a pair.  Each CUDA block reads the whole data set once per pass, from L2
 // after the first block (m = 2^20 points are 12 MiB in f32 SoA).
 #include "aidw_common.cuh"
 #include "aoas.cuh"
@@ -62,30 +66,17 @@ __global__ void naive_kernel(const T* __restrict__ qx, const T* __restrict__ qy,
   // ---- pass 2: the distances again, then the weights (lines 52-58)
   const T neg_ah = -mul_rn(alpha, T(0.5));
   T sum_w = T(0), sum_wz = T(0), min_d2 = T(INFINITY), hit_z = T(0);
-  for (int base = 0; base < m; base += tile_d) {
-    const int end = min(base + tile_d, m);
-    T tile_w = T(0), tile_wz = T(0);
-    for (int i = base; i < end; ++i) {
-      T x, y, zj;
-      if constexpr (AOAS) {
-        load_xyz(dx, i, x, y, zj);
-      } else {
-        x = dx[i];
-        y = dy[i];
-        zj = dz[i];
-      }
-      const T d2 = sq_dist(px, py, x, y);
-      const T w = exp_p(mul_rn(neg_ah, log_p(d2 > tiny ? d2 : tiny)));
-      tile_w = add_rn(tile_w, w);
-      tile_wz = add_rn(tile_wz, mul_rn(w, zj));
-      if (d2 < min_d2) {
-        min_d2 = d2;
-        hit_z = zj;
-      }
+  const auto point = [&](int i, T& x, T& y, T& zj) {
+    if constexpr (AOAS) {
+      load_xyz(dx, i, x, y, zj);
+    } else {
+      x = dx[i];
+      y = dy[i];
+      zj = dz[i];
     }
-    sum_w = add_rn(sum_w, tile_w);
-    sum_wz = add_rn(sum_wz, tile_wz);
-  }
+  };
+  for (int base = 0; base < m; base += tile_d)
+    weight_tile(px, py, neg_ah, base, min(base + tile_d, m), point, tiny, sum_w, sum_wz, min_d2, hit_z);
   z_out[q] = (min_d2 <= eps) ? hit_z : sum_wz / sum_w;
 }
 

@@ -17,10 +17,10 @@ import torch
 from repro_torch.core.aidw import tiny_for
 from repro_torch.kernels import _build
 from repro_torch.kernels.aidw_tiled import (
-    _WEIGHT_THREADS,
     _check_float,
     _on_card,
     _suffix,
+    _weight_threads,
     weight_sweep_plain,
 )
 
@@ -46,7 +46,7 @@ def idw_tiled_soa(dx, dy, dz, qx, qy, *, alpha: float = 2.0, exact_hit_eps: floa
     out = torch.empty_like(qx)
     fn = _build.entry(f"aidw_idw_{_suffix(qx.dtype)}")
     err = fn(qx.data_ptr(), qy.data_ptr(), dx.data_ptr(), dy.data_ptr(), dz.data_ptr(), n, m, block_d,
-             _WEIGHT_THREADS, float(alpha), float(exact_hit_eps), tiny_for(qx.dtype), out.data_ptr(),
+             _weight_threads(qx), float(alpha), float(exact_hit_eps), tiny_for(qx.dtype), out.data_ptr(),
              torch.cuda.current_stream(qx.device).cuda_stream)
     _build.check(err, "idw_tiled_soa launch")
     _build.LAUNCHES["idw"] += 1
