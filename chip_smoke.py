@@ -11,10 +11,14 @@ in order (a failed check raises, and the script exits nonzero):
 1. build: each kernel's registers and spills, as ``ptxas -v`` prints them,
    and the SASS instructions and special-function-unit (MUFU) ops per pair
    of the float32 weight kernel's inner loop, which must take at most the
-   two MUFU ops a pair the function needs;
+   two MUFU ops a pair the function needs, and of the float32 kNN walk's
+   hot loop, which must hold no FFMA and at most one shared load per two
+   pairs;
 2. each kernel against its plain PyTorch version on the card, float32 and
-   float64, at the shapes the main path gives it (m = 2^20), and B2 at a
-   4,096-point plan tile (the dynamic-shared-memory path) with its control;
+   float64, at the shapes the main path gives it (m = 2^20): B1 and B3
+   alpha bit for bit, with a control that a walk losing one split part
+   fails, and B2 also at a 4,096-point plan tile (the dynamic-shared-memory
+   path) with its control;
 3. the golden fixture (``tests/fixtures/aidw_golden.npz``) for ``grid`` with
    both pipelines and for ``tiled``, float32 and float64;
 4. run-to-run determinism and NaN/Inf query hardening; B2 on a 65,536
@@ -61,9 +65,10 @@ in order (a failed check raises, and the script exits nonzero):
 20. (a) the paper's dense variants' kernels against their plain versions on
     the card, float32 and float64, m = 2^20, 2,048 queries: B7 and B8
     (``naive.cu``, SoA and AoaS), B9 and B10 (``knn.cu`` and ``weight.cu``
-    on AoaS) and B1 with ``nbins`` (the ``binned`` prefilter), alpha exactly
-    and z within 64 ulps, with controls that a weight pass dropping its
-    first tile and a k-best dropping the nearest point fail the check;
+    on AoaS) and B1 with ``nbins`` (the ``binned`` prefilter, also at 4- and
+    12-point bins), alpha exactly and z within 64 ulps, with controls that a
+    weight pass dropping its first tile and a k-best dropping the nearest
+    point fail the check;
 21. (b) naive SoA, naive AoaS, tiled AoaS and tiled SoA give the same
     alpha and z bits;
 22. (c) the golden fixture for naive SoA/AoaS and tiled AoaS, float32 and
@@ -97,7 +102,11 @@ in order (a failed check raises, and the script exits nonzero):
     their bounds;
 30. B2 (float32) timed with CUDA events at 128 and 256 threads a block at
     8,192, 65,536 and 2^20 queries, beside the wrapper's choice
-    (``kernels/aidw_tiled.py: weight_launch``), both giving the same bits.
+    (``kernels/aidw_tiled.py: weight_launch``), both giving the same bits;
+31. B1 (float32, shared row) timed with CUDA events at S = 1, 2 and 4
+    threads a query and 128 or 256 threads a block, at 8,192, 65,536 and
+    2^20 queries: all give the same bits, and the wrapper's choice
+    (``kernels/aidw_tiled.py: knn_launch``) is the fastest or within 3%.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Without a CUDA card,
@@ -130,8 +139,12 @@ N_CHECK = 2048                         # queries of the shared-row kernel checks
 SUM_ULPS = 8
 N_BLOCKS = 64                          # blocks of each far-field serving batch held against plain
 
-# H100 SXM published peaks (NVIDIA data sheet), non-tensor-core
-PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+# H100 SXM (NVIDIA data sheet), non-tensor-core, at 132 SMs and 1.98 GHz:
+# operations at one lane slot each, 128 FP32 or 64 FP64 lanes per SM and
+# clock.  The published 67 (34) TFLOP/s count an FMA as two flops; the
+# kernels' counted operations (the _rn sub, mul and add of d^2 and the
+# weights, compares, mins) never fuse into an FMA, so each takes a slot.
+PEAK_OPS = {"float32": 132 * 128 * 1.98e9, "float64": 132 * 64 * 1.98e9}
 PEAK_BYTES = 3.35e12
 # special-function units: 16 results per SM per clock, 132 SMs, 1.98 GHz boost
 PEAK_SFU = 132 * 16 * 1.98e9
@@ -243,10 +256,15 @@ def profile_batch(tag, run):
         print("  profile: the trace shows no device time; device busy share not measured")
 
 
-def inner_loop_sass(cuobjdump: str, lib: Path, kernel: str):
+def inner_loop_sass(cuobjdump: str, lib: Path, kernel: str, marker: str = "MUFU.EX2", per_pair: int = 1,
+                    cold: bool = False):
     """The per-pair loop of ``kernel``'s SASS: the innermost loop with the
-    most MUFU.EX2 (one per exp).  Returns ``(instructions per pair, {MUFU
-    opcode: count per pair})``, or ``None`` when no such loop is found.
+    most ``marker`` ops, ``per_pair`` of them a pair (one MUFU.EX2, the exp,
+    in a weight loop; two FMUL, dx^2 and dy^2, in the kNN loop).  With
+    ``cold`` the instructions that a forward branch inside the loop jumps
+    over are left out: the kNN loop's k-best insertion, run only when a
+    group's minimum beats the k-th best.  Returns ``(instructions per pair,
+    {opcode: count per pair})``, or ``None`` when no such loop is found.
     Also writes the library's SASS beside it as ``<lib>.sass``."""
     text = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
                           check=True).stdout
@@ -255,20 +273,34 @@ def inner_loop_sass(cuobjdump: str, lib: Path, kernel: str):
     instr = [(int(a, 16), op) for a, op in
              re.findall(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", func)]
     labels = {lab: int(a, 16) for lab, a in re.findall(r"(\.L_x_\d+):\s*\n\s*/\*([0-9a-f]+)\*/", func)}
-    spans = set()
+    branches = []
     for a, t in re.findall(r"/\*([0-9a-f]{4,})\*/[^\n]*?BRA\s+`?\(?(0x[0-9a-f]+|\.L_x_\d+)", func):
         a, t = int(a, 16), labels.get(t) if t.startswith(".") else int(t, 16)
-        if t is not None and t <= a:
-            spans.add((t, a))
+        if t is not None:
+            branches.append((a, t))
+    spans = {(t, a) for a, t in branches if t <= a}
     inner = [(t, a) for t, a in spans
              if not any((t2, a2) != (t, a) and t <= t2 and a2 <= a for t2, a2 in spans)]
-    bodies = [[op for addr, op in instr if t <= addr <= a] for t, a in inner]
-    bodies = [b for b in bodies if "MUFU.EX2" in b]
+
+    def is_op(op, name):
+        return op == name or op.startswith(name + ".")
+
+    bodies = []
+    for t, a in inner:
+        skipped = [(b, e) for b, e in branches if cold and t <= b < e <= a]
+        bodies.append([op for addr, op in instr
+                       if t <= addr <= a and not any(b < addr < e for b, e in skipped)])
+    bodies = [b for b in bodies if any(is_op(op, marker) for op in b)]
     if not bodies:
         return None
-    body = max(bodies, key=lambda b: b.count("MUFU.EX2"))
-    per = body.count("MUFU.EX2")
-    return len(body) / per, {op: body.count(op) / per for op in sorted(set(body)) if op.startswith("MUFU")}
+    body = max(bodies, key=lambda b: sum(is_op(op, marker) for op in b))
+    pairs = sum(is_op(op, marker) for op in body) / per_pair
+    return len(body) / pairs, {op: body.count(op) / pairs for op in sorted(set(body))}
+
+
+def mufu(ops):
+    """The special-function-unit ops of an ``inner_loop_sass`` mix."""
+    return {op: c for op, c in ops.items() if op.startswith("MUFU")}
 
 
 def weight_func(aoas=False, const_ah=False):
@@ -276,17 +308,29 @@ def weight_func(aoas=False, const_ah=False):
     return f"_ZN4aidw13weight_kernelIfLb{int(aoas)}ELb{int(const_ah)}EE"
 
 
+def knn_func(k, aoas=False, binned=False, vote=False):
+    """Mangled-name prefix of the float32 ``knn_alpha_kernel<float, k, aoas, binned, vote>``."""
+    return f"_ZN4aidw16knn_alpha_kernelIfLi{k}ELb{int(aoas)}ELb{int(binned)}ELb{int(vote)}EE"
+
+
 _SASS = {}
 
 
-def kernel_sass(lib, func):
+def kernel_sass(lib, func, **kw):
     """``inner_loop_sass`` of ``func`` in the built library ``lib``, read once."""
     from repro_torch.kernels import _build
 
-    if (lib, func) not in _SASS:
+    key = (lib, func, tuple(sorted(kw.items())))
+    if key not in _SASS:
         cuobjdump = str(Path(_build.nvcc_path()).parent / "cuobjdump")
-        _SASS[lib, func] = inner_loop_sass(cuobjdump, _build.library_path(lib), func)
-    return _SASS[lib, func]
+        _SASS[key] = inner_loop_sass(cuobjdump, _build.library_path(lib), func, **kw)
+    return _SASS[key]
+
+
+def knn_sass(k):
+    """The hot kNN loop of ``knn_alpha_kernel<float, k, false, false, false>``
+    (two FMUL a pair; the insertion block left out)."""
+    return kernel_sass("knn", knn_func(k), marker="FMUL", per_pair=2, cold=True)
 
 
 def main():
@@ -310,6 +354,9 @@ def main():
     from repro_torch.kernels.aidw_tiled import (
         knn_alpha,
         knn_alpha_plain,
+        knn_launch,
+        knn_part,
+        knn_stage_points,
         weight_launch,
         weight_sweep,
         weight_sweep_plain,
@@ -317,7 +364,6 @@ def main():
 
     dev = torch.device("cuda")
     t_start = time.time()
-    alpha_tol = {torch.float32: 1e-6, torch.float64: 1e-12}
     eps = {torch.float32: float(np.finfo(np.float32).eps), torch.float64: float(np.finfo(np.float64).eps)}
 
     def z_tol(dtype, m, z_abs_max):
@@ -354,9 +400,25 @@ def main():
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     sass = kernel_sass("weight", weight_func())
     check(sass is not None, "the SASS of weight_kernel<float> has a per-pair loop")
-    print(f"  weight_kernel<float> SASS per-pair loop: {sass[0]} instructions per pair, MUFU per pair {sass[1]}")
-    check(sum(sass[1].values()) <= MUFU_PER_PAIR, f"weight_kernel<float> takes at most {MUFU_PER_PAIR} MUFU ops a pair")
+    print(f"  weight_kernel<float> SASS per-pair loop: {sass[0]} instructions per pair, MUFU per pair "
+          f"{mufu(sass[1])}")
+    check(sum(mufu(sass[1]).values()) <= MUFU_PER_PAIR,
+          f"weight_kernel<float> takes at most {MUFU_PER_PAIR} MUFU ops a pair")
     print(f"  {sms} SMs; the 65,536 batch runs {weight_launch(SERVING[0][0], sms)} threads a block")
+    # the kNN walk's hot loop (aidw_common.cuh: knn_span, knn_group) at
+    # aidw-pod-1m's k: d^2 stays uncontracted (no FFMA) and one 16-byte
+    # shared load serves two pairs or more; the insertion, taken only when a
+    # group beats the k-th best, is left out of the count
+    knn_loop = knn_sass(10)
+    check(knn_loop is not None, "the SASS of knn_alpha_kernel<float, 10> has a per-pair loop")
+    ffma = sum(c for op, c in knn_loop[1].items() if op.startswith("FFMA"))
+    lds = sum(c for op, c in knn_loop[1].items() if op.startswith("LDS"))
+    print(f"  knn_alpha_kernel<float, 10> SASS hot loop: {knn_loop[0]} instructions per pair (aim 8 or fewer), "
+          f"FFMA {ffma}, LDS {lds} per pair; per pair {knn_loop[1]}")
+    check(ffma == 0, "the kNN loop forms no FFMA")
+    check(lds <= 0.5, "the kNN loop issues at most one shared load per two pairs")
+    print(f"  knn_launch at 65,536 queries: (threads, S) = {knn_launch(SERVING[0][0], sms)}; at {N_CHECK}: "
+          f"{knn_launch(N_CHECK, sms)}")
 
     wl = AIDW_WORKLOADS["aidw-pod-1m"]
     check(wl.m == M_FULL and wl.n == M_FULL and wl.k == 10, "aidw-pod-1m is m = n = 2^20, k = 10")
@@ -382,7 +444,23 @@ def main():
         kw = dict(params=params, area=1.0, m_real=M_FULL)
         a_k = knn_alpha(qxc, qyc, dx[None], dy[None], block_q=256, tile_d=512, **kw)
         a_p = knn_alpha_plain(qxc, qyc, dx[None], dy[None], block_q=256, tile_d=512, **kw)
-        report(f"B1 shared row {name}", maxerr(a_k, a_p), alpha_tol[dtype])
+        split = knn_launch(N_CHECK, sms)
+        print(f"  B1 shared row {name} ({split[1]} threads a query, {split[0]} a block): bitwise equal to plain "
+              f"{torch.equal(a_k, a_p)} (max err {maxerr(a_k, a_p):.3e})")
+        check(torch.equal(a_k, a_p), f"B1 shared row {name} equals its plain version exactly")
+        # the control: the plain version without the last of four parts of
+        # every stage (what a walk that lost a split part would see)
+        stage = knn_stage_points(dtype)
+        pos = torch.arange(dx.shape[0], device=dev) % stage
+        lo, hi = knn_part(stage, 4, 3)
+        lost = (pos >= lo) & (pos < hi)
+        sent = coord_sentinel(dtype, dev)
+        a_lost = knn_alpha_plain(qxc, qyc, torch.where(lost, sent, dx)[None], torch.where(lost, sent, dy)[None],
+                                 block_q=256, tile_d=512, **kw)
+        moved = int((a_lost != a_p).sum())
+        print(f"  B1 {name} control: a walk without part 4 of 4 of every {stage}-point stage moves {moved} of "
+              f"{N_CHECK} alphas")
+        check(moved > 0, "the bitwise B1 check catches a lost split part")
         z_k = weight_sweep(qxc, qyc, a_k * 0.5, dx, dy, dz, tile_d=512, eps=params.exact_hit_eps)
         z_p = weight_sweep_plain(qxc, qyc, a_k * 0.5, dx, dy, dz, tile_d=512, eps=params.exact_hit_eps)
         e_b2 = maxerr(z_k, z_p)
@@ -391,7 +469,6 @@ def main():
         # the tolerance is tight enough to see a sweep that loses one tile
         gone = torch.zeros_like(dx, dtype=torch.bool)
         gone[:512] = True
-        sent = coord_sentinel(dtype, dev)
         z_gone = weight_sweep_plain(qxc, qyc, a_k * 0.5, torch.where(gone, sent, dx), torch.where(gone, sent, dy),
                                     dz, tile_d=512, eps=params.exact_hit_eps)
         e_gone = float(((z_gone - z_p) / z_p).abs().max())
@@ -430,9 +507,10 @@ def main():
         a1_p = knn_alpha_plain(lay.qx_v, lay.qy_v, lay.cand_x, lay.cand_y, **rows)
         sync()
         cut = int((lay.num_tiles < full).sum())
-        report(f"B3 tile table {name} ({cut} of {lay.num_tiles.shape[0]} rows walk < {full} tiles)",
-               maxerr(a3, a3_p), alpha_tol[dtype])
-        report(f"B1 candidate rows {name}", maxerr(a1, a1_p), alpha_tol[dtype])
+        for tag, a_k, a_p in ((f"B3 tile table {name} ({cut} of {lay.num_tiles.shape[0]} rows walk < {full} tiles)",
+                               a3, a3_p), (f"B1 candidate rows {name}", a1, a1_p)):
+            print(f"  {tag}: bitwise equal to plain {torch.equal(a_k, a_p)} (max err {maxerr(a_k, a_p):.3e})")
+            check(torch.equal(a_k, a_p), f"{tag} equals its plain version exactly")
         check(torch.equal(a3, a1), f"B3 alpha bitwise equal to B1-dense alpha ({name})")
         print(f"  B3 == B1-dense bitwise ({name}): True")
         if dtype == torch.float32:
@@ -620,14 +698,15 @@ def main():
     # operations per pair, counted from the kernels' code: kNN 2 sub, 2 mul,
     # 1 add, 1 compare; weight the same 5 for d^2, max, mul, 2 adds, mul,
     # compare, and exp and log counted as one operation each
-    flops = {"knn_skip": 6, "knn_soa": 6, "weight_soa": 13}
+    ops_pair = {"knn_skip": 6, "knn_soa": 6, "weight_soa": 13}
 
     def bound(n_pairs, n_bytes, ops, dtype="float32", sfu_ops=0):
         # the larger of the bytes over the memory rate and the operations
-        # over their peak: n_pairs * ops on the FP32 (FP64) pipes, sfu_ops
+        # over their rate: n_pairs * ops on the FP32 (FP64) pipes, one lane
+        # slot each (PEAK_OPS, not the FMA-counting 67 TFLOP/s), sfu_ops
         # MUFU ops (MUFU_PER_PAIR a float32 weight pair) on the
         # special-function units
-        t_ops = max(n_pairs * ops / PEAK_FLOPS[dtype], sfu_ops / PEAK_SFU)
+        t_ops = max(n_pairs * ops / PEAK_OPS[dtype], sfu_ops / PEAK_SFU)
         t_bytes = n_bytes / PEAK_BYTES
         return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
@@ -636,16 +715,18 @@ def main():
     for name, (kern, plain, reps) in calls.items():
         ms = time_ms(kern, reps)
         plain_ms = time_ms(plain, 1, warmup=0)
-        bound_ms, bound_by = bound(pairs[name], row_bytes[name], flops[name], sfu_ops=sfu.get(name, 0))
+        bound_ms, bound_by = bound(pairs[name], row_bytes[name], ops_pair[name], sfu_ops=sfu.get(name, 0))
         launches = path_launches["grid/dense" if name == "knn_soa" else "grid/prefetch"][name]
         rows_out.append(dict(name=name, route="cuda", **KERNELS[name], launches=launches,
                              max_abs_err=errs[name], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                              bound_by=bound_by, library_ms=None))
+        if name.startswith("knn"):
+            rows_out[-1].update(zip(("threads", "splits"), knn_launch(n_v, sms, block_q=plan.block_q)))
         print(f"  {name}: {ms} ms (plain {plain_ms} ms, bound {bound_ms} ms, {pairs[name]} pairs)",
               flush=True)
     p2 = pairs["weight_soa"]
-    print(f"  weight_soa beside its bound: flops {1e3 * p2 * flops['weight_soa'] / PEAK_FLOPS['float32']} ms "
-          f"({flops['weight_soa']} a pair); MUFU {1e3 * p2 * MUFU_PER_PAIR / PEAK_SFU} ms "
+    print(f"  weight_soa beside its bound: operations {1e3 * p2 * ops_pair['weight_soa'] / PEAK_OPS['float32']} ms "
+          f"({ops_pair['weight_soa']} a pair); MUFU {1e3 * p2 * MUFU_PER_PAIR / PEAK_SFU} ms "
           f"({MUFU_PER_PAIR} per pair at 16/SM/clock); instruction issue {1e3 * p2 * sass[0] / PEAK_ISSUE} "
           f"ms ({sass[0]} SASS instructions per pair at 128/SM/clock)")
 
@@ -656,9 +737,10 @@ def main():
     ms = time_ms(lambda: knn_alpha(qx_t, qy_t, dxt[None], dyt[None], **shared), 3)
     plain_ms = time_ms(lambda: knn_alpha_plain(qx_t, qy_t, dxt[None], dyt[None], **shared), 1, warmup=0)
     sh_pairs = qx_t.shape[0] * M_FULL
-    bound_ms, bound_by = bound(sh_pairs, 2 * 4 * M_FULL + 3 * 4 * qx_t.shape[0], flops["knn_soa"])
+    bound_ms, bound_by = bound(sh_pairs, 2 * 4 * M_FULL + 3 * 4 * qx_t.shape[0], ops_pair["knn_soa"])
     print(f"  knn_soa shared row (tiled): {ms} ms (plain {plain_ms} ms, bound {bound_ms} ms by {bound_by}, "
-          f"{sh_pairs} pairs)", flush=True)
+          f"{sh_pairs} pairs, (threads, S) {knn_launch(qx_t.shape[0], sms, block_q=plan_t.block_q)})", flush=True)
+    next(r for r in rows_out if r["name"] == "knn_soa").update(shared_row_ms=ms, shared_row_bound_ms=bound_ms)
     ff_rows, ff_walls = farfield_phases(
         dev=dev, params=params, golden=golden, eps=eps, data=data, queries=queries, sync=sync,
         maxerr=maxerr, time_ms=time_ms, bound=bound, batches=batches, results=results,
@@ -676,6 +758,7 @@ def main():
         dev=dev, params=params, golden=golden, data=data, queries=queries, sync=sync, maxerr=maxerr,
         time_ms=time_ms, bound=bound, z_tol=z_tol, b2_rtol=b2_rtol)
     weight_shape_phase(params=params, data=data, queries=queries, time_ms=time_ms)
+    knn_shape_phase(params=params, data=data, queries=queries, time_ms=time_ms)
     print(f"  total {time.time() - t_start:.1f} s")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1378,6 +1461,7 @@ def dense_phases(*, dev, params, golden, eps, data, queries, sync, maxerr, time_
         knn_alpha_aoas,
         knn_alpha_aoas_plain,
         knn_alpha_plain,
+        knn_launch,
         weight_sweep,
         weight_sweep_aoas,
         weight_sweep_aoas_plain,
@@ -1386,6 +1470,7 @@ def dense_phases(*, dev, params, golden, eps, data, queries, sync, maxerr, time_
 
     f32, f64 = torch.float32, torch.float64
     hit_eps = params.exact_hit_eps
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     block_d = 512  # the plans' default data tile
     nbins = binned_nbins(params.k, block_d)
     kw = dict(params=params, area=1.0, m_real=M_FULL)
@@ -1442,6 +1527,18 @@ def dense_phases(*, dev, params, golden, eps, data, queries, sync, maxerr, time_
             print(f"  {tag} {name}: bitwise equal to plain {torch.equal(a_k, a_p)} "
                   f"(max err {maxerr(a_k, a_p):.3e})")
             check(torch.equal(a_k, a_p), f"{tag} {name} equals its plain version exactly")
+        # the binned walk's other bins: 4 points (not whole groups of the walk,
+        # split between threads) and 12 points (one thread a query, bins
+        # across stages), on the row cut to whole tiles
+        for tile_o, nbins_o in ((512, 128), (384, 32)):
+            m_o = dxp.shape[0] // tile_o * tile_o
+            ko = dict(block_q=256, tile_d=tile_o, nbins=nbins_o, **kw)
+            a_o = knn_alpha(qx, qy, dxp[None, :m_o], dyp[None, :m_o], **ko)
+            a_op = knn_alpha_plain(qx, qy, dxp[None, :m_o], dyp[None, :m_o], **ko)
+            tag = f"B1 knn_binned alpha, {tile_o // nbins_o}-point bins, {name}"
+            print(f"  {tag} (threads, S) {knn_launch(N_CHECK, sms, bin_points=tile_o // nbins_o)}: bitwise equal to "
+                  f"plain {torch.equal(a_o, a_op)}")
+            check(torch.equal(a_o, a_op), f"{tag} equals its plain version exactly")
         for tag, z_k, z_p in (("B7 naive_soa z", z7, z7p), ("B8 naive_aoas z", z8, z8p),
                               ("B10 weight_aoas z", z10, z10p)):
             report(f"{tag} {name} relative (bitwise {torch.equal(z_k, z_p)})", rel(z_k, z_p), b2_rtol(dtype))
@@ -1617,6 +1714,9 @@ def dense_phases(*, dev, params, golden, eps, data, queries, sync, maxerr, time_
                 rows.append(dict(name=kname, route="cuda", **KERNELS[kname], launches=dense_launches[kname],
                                  max_abs_err=errs[kname], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                  bound_by=bound_by, library_ms=None))
+                if kname.startswith("knn"):
+                    rows[-1].update(zip(("threads", "splits"), knn_launch(
+                        n_q, sms, block_q=256, bin_points=sub if kname == "knn_binned" else 0)))
             print(line + ")", flush=True)
     print(f"  tiled SoA beside phase 6 (float32, this call): knn_soa {times['knn_soa', f32]} ms here, "
           f"{phase6_ms['knn_soa_row']} ms in phase 6; weight_soa {times['weight_soa', f32]} ms here, "
@@ -1656,12 +1756,13 @@ def fused_v2_idw_phases(*, dev, params, golden, data, queries, sync, maxerr, tim
     from repro_torch.kernels._common import alpha_from_best, merge_k_best, sq_dist_tile
     from repro_torch.kernels.aidw_fused import aidw_fused_soa, aidw_fused_soa_plain
     from repro_torch.kernels.aidw_naive import aidw_naive_soa, aidw_naive_soa_plain
-    from repro_torch.kernels.aidw_tiled import knn_alpha, knn_alpha_plain, weight_sweep
+    from repro_torch.kernels.aidw_tiled import knn_alpha, knn_alpha_plain, knn_launch, weight_sweep
     from repro_torch.kernels.aidw_tiled_v2 import knn_alpha_v2, knn_alpha_v2_plain
     from repro_torch.kernels.idw_tiled import idw_tiled_soa, idw_tiled_soa_plain
 
     f32, f64 = torch.float32, torch.float64
     hit_eps = params.exact_hit_eps
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     block_q, block_d = 256, 512  # the plans' defaults
     idw_alpha = 2.0
     kw = dict(params=params, area=1.0, m_real=M_FULL)
@@ -1887,6 +1988,8 @@ def fused_v2_idw_phases(*, dev, params, golden, data, queries, sync, maxerr, tim
                 rows.append(dict(name=kname, route="cuda", **KERNELS[kname],
                                  launches=sum(v.get(kname, 0) for v in launches.values()), max_abs_err=errs[kname],
                                  ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+                if kname == "knn_v2":
+                    rows[-1].update(zip(("threads", "splits"), knn_launch(n_q, sms, block_q=block_q, vote=True)))
             print(line + ")", flush=True)
     # the per-pair weight loop of each float32 sweep, from the SASS
     for kname, lib, func in (("weight_soa", "weight", weight_func()),
@@ -1896,7 +1999,7 @@ def fused_v2_idw_phases(*, dev, params, golden, data, queries, sync, maxerr, tim
                              ("fused", "fused", f"_ZN4aidw12fused_kernelIfLi{params.k}EEE")):
         sass = kernel_sass(lib, func)
         print(f"  {kname} float32 SASS weight loop: " + ("not found" if sass is None else
-              f"{sass[0]} instructions per pair, MUFU per pair {sass[1]}"))
+              f"{sass[0]} instructions per pair, MUFU per pair {mufu(sass[1])}"))
     print(f"  phase 29: {time.time() - t_phase:.1f} s", flush=True)
     return rows
 
@@ -1939,6 +2042,52 @@ def weight_shape_phase(*, params, data, queries, time_ms):
         print(f"  n={n}: 128 threads {got[128]} ms, 256 threads {got[256]} ms; fastest {best}; "
               f"weight_launch picks {rule} ({sms} SMs); both bitwise equal", flush=True)
     print(f"  phase 30: {time.time() - t_phase:.1f} s", flush=True)
+
+
+def knn_shape_phase(*, params, data, queries, time_ms):
+    """Phase 31: B1 (float32, SoA shared row, m = 2^20) timed with CUDA events
+    at S = 1, 2 and 4 threads a query and 128 or 256 threads a block, at
+    8,192, 65,536 and 2^20 queries, beside the wrapper's choice
+    (``kernels/aidw_tiled.py: knn_launch``), which must be the fastest or
+    within 3% of it; every setting gives the wrapper's bits."""
+    import torch
+
+    from repro_torch.engine import build_plan
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.aidw_tiled import KNN_GROUP, _alpha_consts, knn_alpha, knn_launch
+
+    print(f"== 31. B1 splits (CUDA events, float32, m = 2^20, {KNN_GROUP} points a group)", flush=True)
+    t_phase = time.time()
+    block_q, block_d = 256, 512
+    dxp, dyp, _ = build_plan(*data(torch.float32), params=params, area=1.0, impl="tiled", block_d=block_d).data
+    fn = _build.entry("aidw_knn_alpha_f32")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    consts = _alpha_consts(params, 1.0, M_FULL)
+    stream = torch.cuda.current_stream().cuda_stream
+    for n in (8192, SERVING[0][0], M_FULL):
+        qx, qy = queries(n, 31)
+        ref = knn_alpha(qx, qy, dxp[None], dyp[None], block_q=block_q, tile_d=block_d, params=params, area=1.0,
+                        m_real=M_FULL)
+        got = {}
+        for threads in (128, 256):
+            for splits in (1, 2, 4):
+                out = torch.empty_like(qx)
+
+                def run():
+                    _build.check(fn(qx.data_ptr(), qy.data_ptr(), dxp.data_ptr(), dyp.data_ptr(), 0, None, n,
+                                    block_q, dxp.shape[0], block_d, 0, params.k, threads, splits, *consts,
+                                    out.data_ptr(), stream), "knn launch")
+
+                got[threads, splits] = time_ms(run, 1 if n == M_FULL else 3)
+                check(torch.equal(out, ref), f"B1 with {threads} threads and S = {splits} gives the wrapper's bits "
+                                             f"(n={n})")
+        best = min(got, key=got.get)
+        rule = knn_launch(n, sms, block_q=block_q)
+        print(f"  n={n}: " + ", ".join(f"{t} threads S={sp} {ms} ms" for (t, sp), ms in got.items())
+              + f"; fastest {best}; knn_launch picks {rule} ({sms} SMs), {got[rule] / got[best]:.4f}x the fastest; "
+              "all bitwise equal", flush=True)
+        check(got[rule] <= 1.03 * got[best], f"knn_launch's pick at n={n} is within 3% of the fastest setting")
+    print(f"  phase 31: {time.time() - t_phase:.1f} s", flush=True)
 
 
 if __name__ == "__main__":

@@ -43,10 +43,10 @@ _I = ctypes.c_int
 _D = ctypes.c_double
 # extern "C" entry points: name -> (library, argtypes); all return cudaError_t
 ENTRY_POINTS = {
-    **{f"aidw_knn_alpha_{t}": ("knn", [_P, _P, _P, _P, ctypes.c_longlong, _P] + [_I] * 7 + [_D] * 9 + [_P, _P])
+    **{f"aidw_knn_alpha_{t}": ("knn", [_P, _P, _P, _P, ctypes.c_longlong, _P] + [_I] * 8 + [_D] * 9 + [_P, _P])
        for t in ("f32", "f64")},
-    **{f"aidw_knn_alpha_aoas_{t}": ("knn", [_P] * 3 + [_I] * 6 + [_D] * 9 + [_P, _P]) for t in ("f32", "f64")},
-    **{f"aidw_knn_alpha_v2_{t}": ("knn", [_P] * 4 + [_I] * 6 + [_D] * 9 + [_P] * 3) for t in ("f32", "f64")},
+    **{f"aidw_knn_alpha_aoas_{t}": ("knn", [_P] * 3 + [_I] * 7 + [_D] * 9 + [_P, _P]) for t in ("f32", "f64")},
+    **{f"aidw_knn_alpha_v2_{t}": ("knn", [_P] * 4 + [_I] * 7 + [_D] * 9 + [_P] * 3) for t in ("f32", "f64")},
     **{f"aidw_weight_{t}": ("weight", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _D, _D, _P, _P])
        for t in ("f32", "f64")},
     **{f"aidw_weight_aoas_{t}": ("weight", [_P] * 4 + [_I] * 4 + [_D, _D, _P, _P]) for t in ("f32", "f64")},

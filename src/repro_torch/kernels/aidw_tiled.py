@@ -48,7 +48,50 @@ def _k_list() -> tuple[int, ...]:
 # refused on the card (the CPU path takes any k)
 SUPPORTED_K = _k_list()
 
-_KNN_THREADS = 256
+# csrc/knn.cu: kKnnStageBytes, the x and y arrays of one stage of the kNN
+# walk (2,048 float32 or 1,024 float64 points), and aidw_common.cuh:
+# kKnnGroup, the points a step; CPU tests read both back from the sources
+KNN_STAGE_BYTES = 16 * 1024
+KNN_GROUP = 8
+# knn_launch splits a batch's queries while it has fewer threads than this
+# per SM (24 warps), at most four ways
+_KNN_SPLIT_THREADS_PER_SM = 768
+
+
+def knn_stage_points(dtype) -> int:
+    """Points of one stage of the kNN walk in ``dtype``."""
+    return KNN_STAGE_BYTES // (2 * (torch.finfo(dtype).bits // 8))
+
+
+def knn_part(cnt: int, splits: int, part: int, unit: int = KNN_GROUP) -> tuple[int, int]:
+    """The points ``[lo, hi)`` of a stage of ``cnt`` points that part
+    ``part`` of ``splits`` sweeps in ``csrc/knn.cu``: ``ceil(cnt / splits)``
+    rounded up to a multiple of ``unit`` (the group, or the binned
+    prefilter's bin) a part, the last parts shorter or empty."""
+    share = -(-cnt // splits)
+    per = -(-share // unit) * unit
+    lo = min(part * per, cnt)
+    return lo, min(lo + per, cnt)
+
+
+def knn_launch(n: int, sms: int, *, block_q: int = 256, vote: bool = False, bin_points: int = 0) -> tuple[int, int]:
+    """``(threads, S)`` of a launch of the kNN kernel (``csrc/knn.cu``) for a
+    batch of ``n`` queries in plan blocks of ``block_q`` on a card with
+    ``sms`` multiprocessors: S threads share a query and split its points, a
+    CUDA block holds ``threads / S`` queries of one plan block.  S doubles,
+    up to 4, while the batch has fewer than ``_KNN_SPLIT_THREADS_PER_SM``
+    threads per SM: more warps hide more latency, but every part walks its
+    own k-best, so a large batch keeps S = 1 (``chip_smoke.py`` phase 31
+    times S = 1, 2, 4 at 8,192, 65,536 and 2^20 queries).  S = 1 with the
+    threshold-skip vote, whose tau is the k-th best at each tile's start,
+    and with bins that do not divide a float64 stage.  A query's alpha does
+    not depend on it."""
+    splits = 1
+    if not vote and not (bin_points and knn_stage_points(torch.float64) % bin_points):
+        while splits < 4 and n * splits < _KNN_SPLIT_THREADS_PER_SM * sms:
+            splits *= 2
+    queries = math.gcd(block_q, 256 // splits)
+    return queries * splits, splits
 
 
 def weight_launch(n: int, sms: int) -> int:
@@ -70,6 +113,11 @@ def _sm_count(index: int) -> int:
 def _weight_threads(q: torch.Tensor) -> int:
     """``weight_launch`` for the batch ``q`` on its card."""
     return weight_launch(q.shape[0], _sm_count(q.device.index))
+
+
+def knn_launch_for(q: torch.Tensor, block_q: int, **kw) -> tuple[int, int]:
+    """``knn_launch`` for the batch ``q`` on its card."""
+    return knn_launch(q.shape[0], _sm_count(q.device.index), block_q=block_q, **kw)
 
 
 def _on_card(name: str, *tensors) -> bool:
@@ -197,10 +245,11 @@ def knn_alpha(qx, qy, cand_x, cand_y, *, block_q: int, tile_d: int, num_tiles=No
                                   or not num_tiles.is_contiguous()):
         raise ValueError("knn_alpha: num_tiles must be a contiguous int32 tensor, one per row")
     alpha = torch.empty_like(qx)
+    threads, splits = knn_launch_for(qx, block_q, bin_points=tile_d // nbins if nbins else 0)
     fn = _build.entry(f"aidw_knn_alpha_{_suffix(qx.dtype)}")
     err = fn(qx.data_ptr(), qy.data_ptr(), cand_x.data_ptr(), cand_y.data_ptr(),
              0 if rows == 1 else c_tot, None if num_tiles is None else num_tiles.data_ptr(),
-             n, block_q, c_tot, tile_d, nbins, params.k, math.gcd(block_q, _KNN_THREADS),
+             n, block_q, c_tot, tile_d, nbins, params.k, threads, splits,
              *_alpha_consts(params, area, m_real), alpha.data_ptr(),
              torch.cuda.current_stream(qx.device).cuda_stream)
     _build.check(err, "knn_alpha launch")
@@ -288,7 +337,7 @@ def knn_alpha_aoas(qx, qy, data, *, block_q: int, tile_d: int, params: AIDWParam
     alpha = torch.empty_like(qx)
     fn = _build.entry(f"aidw_knn_alpha_aoas_{_suffix(qx.dtype)}")
     err = fn(qx.data_ptr(), qy.data_ptr(), data.data_ptr(), n, block_q, m, tile_d, params.k,
-             math.gcd(block_q, _KNN_THREADS), *_alpha_consts(params, area, m_real), alpha.data_ptr(),
+             *knn_launch_for(qx, block_q), *_alpha_consts(params, area, m_real), alpha.data_ptr(),
              torch.cuda.current_stream(qx.device).cuda_stream)
     _build.check(err, "knn_alpha_aoas launch")
     _build.LAUNCHES["knn_aoas"] += 1

@@ -24,12 +24,12 @@ from repro_torch.core.aidw import AIDWParams
 from repro_torch.kernels import _build
 from repro_torch.kernels._common import alpha_from_best, merge_k_best, sq_dist_tile
 from repro_torch.kernels.aidw_tiled import (
-    _KNN_THREADS,
     _alpha_consts,
     _check_float,
     _on_card,
     _suffix,
     check_k,
+    knn_launch_for,
     weight_sweep,
 )
 
@@ -64,12 +64,12 @@ def knn_alpha_v2(qx, qy, dx, dy, *, block_q: int, tile_d: int, params: AIDWParam
                                   m_real=m_real)
     _check_float("knn_alpha_v2", qx, qy, dx, dy)
     check_k("knn_alpha_v2", params.k)
-    threads = math.gcd(block_q, _KNN_THREADS)
+    threads, splits = knn_launch_for(qx, block_q, vote=True)  # splits == 1
     alpha = torch.empty_like(qx)
     votes = torch.empty((n // threads, m // tile_d), dtype=torch.uint8, device=qx.device)
     fn = _build.entry(f"aidw_knn_alpha_v2_{_suffix(qx.dtype)}")
     err = fn(qx.data_ptr(), qy.data_ptr(), dx.data_ptr(), dy.data_ptr(), n, block_q, m, tile_d, params.k, threads,
-             *_alpha_consts(params, area, m_real), alpha.data_ptr(), votes.data_ptr(),
+             splits, *_alpha_consts(params, area, m_real), alpha.data_ptr(), votes.data_ptr(),
              torch.cuda.current_stream(qx.device).cuda_stream)
     _build.check(err, "knn_alpha_v2 launch")
     _build.LAUNCHES["knn_v2"] += 1

@@ -51,6 +51,10 @@ constexpr int kSumRun = 32;
 // reads it as SUPPORTED_K.  A k outside it raises in the wrappers.
 #define AIDW_K_LIST(X) X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(11) X(12) X(13) X(14) X(15) X(16)
 
+// A block's dynamic shared memory on sm_90 (weight.cu and knn.cu stage data
+// past 48 KiB after cudaFuncSetAttribute).
+constexpr size_t kMaxSharedBytes = 227 * 1024;
+
 // d^2 = dx*dx + dy*dy, rounded after every operation.  A pad point at the
 // sentinel coordinate (finfo.max / 4) overflows to +inf.
 template <typename T>
@@ -120,6 +124,125 @@ __device__ __forceinline__ bool kbest_insert(T (&best)[K], T v) {
     v = take ? b : v;
   }
   return true;
+}
+
+// The smaller of a and b, ignoring a NaN (fminf, one FMNMX; fmin in
+// float64, a compare and selects): the minimum of a set is NaN only when
+// every value is.
+__device__ __forceinline__ float min_num(float a, float b) { return fminf(a, b); }
+__device__ __forceinline__ double min_num(double a, double b) { return fmin(a, b); }
+
+// Points a kNN loop takes per step (knn_group): their G d^2 are independent
+// chains, and one test against the k-th best serves all G.
+constexpr int kKnnGroup = 8;
+
+// The minimum of G values by a pairwise tree (G a power of two), NaN only
+// when every value is.
+template <typename T, int G>
+__device__ __forceinline__ T group_min(const T (&v)[G]) {
+  T lo[G];
+#pragma unroll
+  for (int u = 0; u < G; ++u) lo[u] = v[u];
+#pragma unroll
+  for (int w = G / 2; w > 0; w /= 2) {
+#pragma unroll
+    for (int u = 0; u < w; ++u) lo[u] = min_num(lo[u], lo[u + w]);
+  }
+  return lo[0];
+}
+
+// Whether one of G values lies below t (NaN never does): the FMNMX tree's
+// minimum against t in float32; G compares in float64, which has no min
+// instruction (fmin takes a compare, two selects and a NaN fix-up).
+template <int G>
+__device__ __forceinline__ bool any_below(const float (&v)[G], float t) {
+  return group_min(v) < t;
+}
+template <int G>
+__device__ __forceinline__ bool any_below(const double (&v)[G], double t) {
+  bool hit = false;
+#pragma unroll
+  for (int u = 0; u < G; ++u) hit |= v[u] < t;
+  return hit;
+}
+
+// G pairs of the k-best walk for one query: the G d^2 and, with INSERT and
+// only when one of them lies below the k-th best, each folded into the
+// k-best in point order.  When none does, none could enter, so the skip
+// changes nothing; past the first few tiles the warp skips together.
+// With MIN it returns the group's minimum (group_min; the binned
+// prefilter's bin minimum and the threshold-skip vote's tile minimum fold
+// it in), else +inf.
+template <typename T, int K, int G, bool INSERT, bool MIN>
+__device__ __forceinline__ T knn_group(T px, T py, const T (&x)[G], const T (&y)[G], T (&best)[K]) {
+  T d2[G];
+#pragma unroll
+  for (int u = 0; u < G; ++u) d2[u] = sq_dist(px, py, x[u], y[u]);
+  const T gmin = MIN ? group_min(d2) : T(INFINITY);
+  if constexpr (INSERT) {
+    if (MIN ? gmin < best[K - 1] : any_below(d2, best[K - 1])) {
+#pragma unroll
+      for (int u = 0; u < G; ++u) kbest_insert(best, d2[u]);
+    }
+  }
+  return gmin;
+}
+
+// G consecutive values from 16-byte aligned shared memory: G / 4 float4 or
+// G / 2 double2 loads.
+template <int G>
+__device__ __forceinline__ void load_group(const float* s, float (&v)[G]) {
+#pragma unroll
+  for (int i = 0; i < G / 4; ++i) {
+    const float4 p = reinterpret_cast<const float4*>(s)[i];
+    v[4 * i] = p.x;
+    v[4 * i + 1] = p.y;
+    v[4 * i + 2] = p.z;
+    v[4 * i + 3] = p.w;
+  }
+}
+template <int G>
+__device__ __forceinline__ void load_group(const double* s, double (&v)[G]) {
+#pragma unroll
+  for (int i = 0; i < G / 2; ++i) {
+    const double2 p = reinterpret_cast<const double2*>(s)[i];
+    v[2 * i] = p.x;
+    v[2 * i + 1] = p.y;
+  }
+}
+
+// Points a <= j < b of the staged x and y arrays sx, sy (16-byte aligned)
+// for one query: with INSERT each folded into the k-best, kKnnGroup at a
+// time from the first multiple of kKnnGroup (so each group is two or four
+// vector loads, two groups a loop step), the edges one by one.  With MIN
+// returns their minimum d^2 (+inf for none).  The k-best set (the K
+// smallest values, duplicates kept) and the minimum do not depend on the
+// order of the points, so neither does anything computed from them.
+template <typename T, int K, bool INSERT, bool MIN>
+__device__ __forceinline__ T knn_span(T px, T py, const T* sx, const T* sy, int a, int b, T (&best)[K]) {
+  constexpr int G = kKnnGroup;
+  T run = T(INFINITY);
+  int j = a;
+  const int head = min(b, (a + G - 1) / G * G);
+  for (; j < head; ++j) {
+    const T x[1] = {sx[j]}, y[1] = {sy[j]};
+    const T v = knn_group<T, K, 1, INSERT, MIN>(px, py, x, y, best);
+    if constexpr (MIN) run = min_num(run, v);
+  }
+#pragma unroll 2
+  for (; j + G <= b; j += G) {
+    T x[G], y[G];
+    load_group(sx + j, x);
+    load_group(sy + j, y);
+    const T gmin = knn_group<T, K, G, INSERT, MIN>(px, py, x, y, best);
+    if constexpr (MIN) run = min_num(run, gmin);
+  }
+  for (; j < b; ++j) {
+    const T x[1] = {sx[j]}, y[1] = {sy[j]};
+    const T v = knn_group<T, K, 1, INSERT, MIN>(px, py, x, y, best);
+    if constexpr (MIN) run = min_num(run, v);
+  }
+  return run;
 }
 
 // alpha of a k-best set: r_obs = mean of sqrt(best), summed in ascending

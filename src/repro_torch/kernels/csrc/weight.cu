@@ -64,7 +64,6 @@ namespace aidw {
 // shared memory staged per __syncthreads: 2,048 float32 or 1,024 float64
 // points, four tiles of the default 512 in float32, two in float64
 constexpr size_t kStageBytes = 32 * 1024;
-constexpr size_t kMaxSharedBytes = 227 * 1024;  // a block's dynamic shared memory on sm_90
 
 // AOAS: dx is the (m, 4) struct array and dy, dz are unused.
 // CONST_AH: every query takes ah_const and ah is unused.
