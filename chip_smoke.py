@@ -11,9 +11,10 @@ in order (a failed check raises, and the script exits nonzero):
 1. build: each kernel's registers and spills, as ``ptxas -v`` prints them,
    and the SASS instructions and special-function-unit (MUFU) ops per pair
    of the float32 weight kernel's inner loop, which must take at most the
-   two MUFU ops a pair the function needs, and of the float32 kNN walk's
-   hot loop, which must hold no FFMA and at most one shared load per two
-   pairs;
+   two MUFU ops a pair the function needs, of the float32 near-field (B4)
+   and far-cell (B5) loops, which must take one MUFU.LG2 and one MUFU.EX2 a
+   pair and no FFMA, and of the float32 kNN walk's hot loop, which must
+   hold no FFMA and at most one shared load per two pairs;
 2. each kernel against its plain PyTorch version on the card, float32 and
    float64, at the shapes the main path gives it (m = 2^20): B1 and B3
    alpha bit for bit, with a control that a walk losing one split part
@@ -34,8 +35,12 @@ in order (a failed check raises, and the script exits nonzero):
    B1 also on the ``tiled`` impl's shared data row;
 7. the far-field kernels (``phase2="farfield"``) against their plain
    versions on the card, float32 and float64, at the serving batch's shapes:
-   B4 (near field) and B5 (far cells), with controls that a sweep dropping
-   one tile, one near point or one far cell fails the check;
+   B4 (near field) and B5 (far cells), float32 within each query's
+   tolerance from its terms (``kernels/_common.py: sfu_sum_tolerance``; the
+   weights come from the special-function units), float64 within 8 ulps,
+   B4's minimum and its z bit for bit; the per-term ulps of the float32
+   weight by |t|; controls that a sweep dropping one tile, one near point or
+   one far cell, or masking one more cell a block, fails the check by 10x;
 8. the golden far-field pin (``ffpin_*`` of the fixture) on the card;
 9. the far-field plan built on the card against the one built on the CPU;
 10. the far-field serving run of ``aidw-pod-1m``: the same four batches, the
@@ -44,17 +49,19 @@ in order (a failed check raises, and the script exits nonzero):
     and B5 at its shapes against their plain versions on sampled blocks;
 11. the far-field overflow arm at the reference test's small shape, bitwise
     against an exact plan;
-12. B4 and B5 timed with CUDA events at the serving batch's shapes;
+12. B4 and B5 timed with CUDA events at the serving batch's shapes, with
+    their operations, special-function-unit and issue bounds;
 13. the quadtree kernel B6 (``phase2="quadtree"``) against its plain version
     on the card, every level, float32 and float64, at the serving batch's
     shapes, with controls that a table losing its first node and a sweep
-    without the dipole term fail the check;
+    without the dipole term fail the check, and B4 on the quadtree plan's
+    near field as in phase 7;
 14. the golden quadtree pin (``qtree_*`` of the fixture) on the card;
 15. the quadtree plan built on the card against the one built on the CPU;
 16. the quadtree serving run of ``aidw-pod-1m``: the same four batches, each
     batch's time, the walk's time alone, stats and launches, its error
-    against the Kahan oracle on sampled queries, and B6 at its shapes against
-    the plain version on sampled blocks;
+    against the Kahan oracle on sampled queries, and B6 and B4 at its shapes
+    against their plain versions on sampled blocks;
 17. the quadtree overflow arm at the reference test's small shape, bitwise
     against an exact plan;
 18. the ring-search arm with every query active on 1,024 queries far
@@ -106,7 +113,12 @@ in order (a failed check raises, and the script exits nonzero):
 31. B1 (float32, shared row) timed with CUDA events at S = 1, 2 and 4
     threads a query and 128 or 256 threads a block, at 8,192, 65,536 and
     2^20 queries: all give the same bits, and the wrapper's choice
-    (``kernels/aidw_tiled.py: knn_launch``) is the fastest or within 3%.
+    (``kernels/aidw_tiled.py: knn_launch``) is the fastest or within 3%;
+32. B4 and B5 (float32) timed with CUDA events at 64, 128 and 256 threads
+    a block at 8,192, 65,536 (two batches) and 2^20 queries, beside the
+    wrapper's choice (``kernels/aidw_grid.py: row_launch``), which must be
+    the fastest or within 5%, all giving the same bits, with the spread of
+    the near rows' lengths.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Without a CUDA card,
@@ -133,9 +145,12 @@ M_FULL = 1 << 20                       # aidw-pod-1m: the paper's 1000K rounded 
 SERVING = [(65536, 1), (65536, 2), (65536, 3), (M_FULL, 4)]  # (queries, seed)
 N_SAMPLE = 1024                        # queries per batch held against the f64 reference
 N_CHECK = 2048                         # queries of the shared-row kernel checks
-# B4/B5 against their plain versions: the same terms summed in the same
-# order (kernels/_common.py: run_sum), so the sums differ only where the
-# card's exp/log in the kernel and in PyTorch give a term other last bits
+# B6, and B4/B5 in float64, against their plain versions: the same terms
+# (precise exp/log on both sides) summed in the same order
+# (kernels/_common.py: run_sum), so the sums differ only where the card's
+# exp/log in the kernel and in PyTorch give a term other last bits.  Float32
+# B4/B5 take their weights from the special-function units and are held to
+# a per-query tolerance instead (kernels/_common.py: sfu_sum_tolerance).
 SUM_ULPS = 8
 N_BLOCKS = 64                          # blocks of each far-field serving batch held against plain
 
@@ -211,20 +226,34 @@ def ulps(k, p, dtype):
     return float(((k - p).abs()[nz] / p[nz].abs()).max()) / torch.finfo(dtype).eps if bool(nz.any()) else 0.0
 
 
-def hold(tag, k, pl, dtype):
-    """A far-field kernel against its plain version on the same inputs: sum w
-    and sum w z within SUM_ULPS of each sum and zero where the plain sum is
-    zero; B4's min d^2 and hit z bit for bit.  Returns ``(ulps, all outputs
-    bitwise equal, min d^2 and hit z equal)``."""
+def off_by(k, p, dtype, tol=None):
+    """How far a sum ``k`` lies from the plain sum ``p``, in tolerances: the
+    largest ``|k - p| / tol`` over the queries (``tolerance_ratio``) for a
+    per-query ``tol``, else its ulps over ``SUM_ULPS``.  At most 1 passes."""
+    from repro_torch.kernels._common import tolerance_ratio
+
+    return ulps(k, p, dtype) / SUM_ULPS if tol is None else tolerance_ratio(k, p, tol)
+
+
+def hold(tag, k, pl, dtype, tol=None):
+    """A far-field kernel against its plain version on the same inputs: sum
+    w and sum w z within SUM_ULPS of each sum (``tol`` None: B6, and B4/B5
+    in float64, bitwise in practice) or within the per-query tolerances
+    ``tol = (tol_w, tol_wz)`` (float32 B4 and B5, whose weights come from
+    the special-function units: ``phase2_near_tolerance``,
+    ``phase2_far_tolerance``), and zero where the plain sum is zero; B4's
+    min d^2 and hit z bit for bit.  Returns ``(tolerances used, ulps, all
+    outputs bitwise equal, min d^2 and hit z equal)``."""
     import torch
 
     for s_k, s_p in zip(k[:2], pl[:2]):
         check(torch.equal(s_k == 0, s_p == 0), f"{tag}: the same sums are 0")
     e = max(ulps(k[0], pl[0], dtype), ulps(k[1], pl[1], dtype))
+    r = max(off_by(k[i], pl[i], dtype, None if tol is None else tol[i]) for i in (0, 1))
     same = e == 0.0 and all(torch.equal(a, b) for a, b in zip(k, pl))
     same_min = len(k) == 2 or (torch.equal(k[2], pl[2]) and torch.equal(k[3], pl[3]))
-    check(e <= SUM_ULPS and same_min, f"{tag} matches its plain version ({e} ulps)")
-    return e, same, same_min
+    check(r <= 1.0 and same_min, f"{tag} matches its plain version ({r} tolerances, {e} ulps)")
+    return r, e, same, same_min
 
 
 def profile_batch(tag, run):
@@ -327,6 +356,15 @@ def kernel_sass(lib, func, **kw):
     return _SASS[key]
 
 
+def far_sass(name):
+    """The per-pair loop of the float32 near-field (B4) or far-cell (B5)
+    kernel (one MUFU.EX2 a pair; B4's first-minimum update, taken only when
+    a group's minimum beats the running one, left out)."""
+    lib, func = {"near_weight": ("near", "_ZN4aidw18near_weight_kernelIfEE"),
+                 "far_cell": ("far", "_ZN4aidw15far_cell_kernelIfEE")}[name]
+    return kernel_sass(lib, func, cold=True)
+
+
 def knn_sass(k):
     """The hot kNN loop of ``knn_alpha_kernel<float, k, false, false, false>``
     (two FMUL a pair; the insertion block left out)."""
@@ -419,6 +457,17 @@ def main():
     check(lds <= 0.5, "the kNN loop issues at most one shared load per two pairs")
     print(f"  knn_launch at 65,536 queries: (threads, S) = {knn_launch(SERVING[0][0], sms)}; at {N_CHECK}: "
           f"{knn_launch(N_CHECK, sms)}")
+    # the near and far-cell sweeps (B4, B5): one MUFU.LG2 and one MUFU.EX2 a
+    # pair (pow_weight), and none of precise expf/logf's FFMA polynomials
+    for kname in ("near_weight", "far_cell"):
+        loop = far_sass(kname)
+        check(loop is not None, f"the SASS of the float32 {kname} kernel has a per-pair loop")
+        ffma = sum(c for op, c in loop[1].items() if op.startswith("FFMA"))
+        print(f"  {kname} kernel<float> SASS per-pair loop: {loop[0]} instructions per pair, MUFU per pair "
+              f"{mufu(loop[1])}, FFMA {ffma}, LDS {sum(c for op, c in loop[1].items() if op.startswith('LDS'))}; "
+              f"per pair {loop[1]}")
+        check(mufu(loop[1]) == {"MUFU.EX2": 1.0, "MUFU.LG2": 1.0} and ffma == 0,
+              f"the {kname} loop takes one MUFU.LG2 and one MUFU.EX2 a pair and no FFMA")
 
     wl = AIDW_WORKLOADS["aidw-pod-1m"]
     check(wl.m == M_FULL and wl.n == M_FULL and wl.k == 10, "aidw-pod-1m is m = n = 2^20, k = 10")
@@ -759,6 +808,7 @@ def main():
         time_ms=time_ms, bound=bound, z_tol=z_tol, b2_rtol=b2_rtol)
     weight_shape_phase(params=params, data=data, queries=queries, time_ms=time_ms)
     knn_shape_phase(params=params, data=data, queries=queries, time_ms=time_ms)
+    row_shape_phase(params=params, data=data, queries=queries, time_ms=time_ms)
     print(f"  total {time.time() - t_start:.1f} s")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -786,10 +836,13 @@ def farfield_phases(*, dev, params, golden, eps, data, queries, sync, maxerr, ti
     from repro_torch.engine.execute import _grid_layout, _near_field
     from repro_torch.errors import UnprovableRtolWarning
     from repro_torch.kernels import _build
+    from repro_torch.kernels._common import EPS32, SUM_RUN, pow_weight, sfu_weight_eps, sq_dist_tile
     from repro_torch.kernels.aidw_grid import (
         phase1_alpha_from_candidates,
         phase2_far_aggregates,
         phase2_far_aggregates_plain,
+        phase2_far_tolerance,
+        phase2_near_tolerance,
         phase2_near_weights,
         phase2_near_weights_plain,
     )
@@ -826,6 +879,76 @@ def farfield_phases(*, dev, params, golden, eps, data, queries, sync, maxerr, ti
             cand = tuple(c[blocks] for c in cand)
         return (qx, qy, ah, *cand), (qx, qy, ah, rects)
 
+    def term_ulps(p, lay, near, ah, blocks, n_pts=256):
+        # the per-term error of the kernels' float32 weight (pow_weight: lg2
+        # and ex2 on the special-function units) against the plain version's
+        # torch.exp(-ah * torch.log(d^2)), pair by pair: B4 on rows that hold
+        # one candidate each, so its sum w is that pair's w exactly and its
+        # min d^2 the pair's d^2.  The pairs: each sampled block's queries
+        # with the first n_pts candidates of its row, and every query of the
+        # batch with its nearest candidate (the largest |t|), one row a query
+        bq, nb = p.block_q, near.cand_x.shape[0]
+        nearest = torch.cat([sq_dist_tile(lay.qx_v[i * bq:(i + 8) * bq].reshape(-1, bq, 1),
+                                          lay.qy_v[i * bq:(i + 8) * bq].reshape(-1, bq, 1),
+                                          near.cand_x[i:i + 8, None], near.cand_y[i:i + 8, None]).argmin(dim=2)
+                             for i in range(0, nb, 8)]).reshape(-1)
+        own = torch.arange(nb, device=dev).repeat_interleave(bq)
+        sets = {"first": (bq, [v.reshape(nb, bq)[blocks][:, None, :].expand(-1, n_pts, -1).reshape(-1)
+                               for v in (lay.qx_v, lay.qy_v, ah)],
+                          [c[blocks, :n_pts].reshape(-1) for c in (near.cand_x, near.cand_y, near.cand_z)]),
+                "nearest": (1, [lay.qx_v, lay.qy_v, ah],
+                            [c[own, nearest] for c in (near.cand_x, near.cand_y, near.cand_z)])}
+        u, t, e_u = [], [], []
+        for per_row, q, pts in sets.values():
+            cand = []
+            for c, fill in zip(pts, (float(coord_sentinel(f32)), float(coord_sentinel(f32)), 0.0)):
+                one = torch.full((c.shape[0], SUM_RUN), fill, dtype=f32, device=dev)
+                one[:, 0] = c
+                cand.append(one)
+            q = [v.contiguous() for v in q]
+            nt = torch.ones(cand[0].shape[0], dtype=torch.int32, device=dev)
+            w_k, _, d2, _ = phase2_near_weights(*q, *cand, nt, block_q=per_row, tile_d=SUM_RUN)
+            w_p = pow_weight(d2, q[2])
+            live = torch.isfinite(d2) & (w_p > 0) & torch.isfinite(w_p)
+            w_k, w_p, d2, ah_t = w_k[live], w_p[live], d2[live], q[2][live]
+            u.append(((w_k.double() - w_p.double()).abs() / w_p.double()) / EPS32)
+            t.append((ah_t.double() * torch.log(torch.clamp(d2, min=1e-30).double())).abs())
+            e_u.append(sfu_weight_eps(d2, ah_t) / EPS32)
+        u, t, e_u = torch.cat(u), torch.cat(t), torch.cat(e_u)
+        print(f"  per-term ulps of w, float32 kernel (lg2/ex2) vs torch.exp(-ah log d^2), {u.numel()} pairs (the "
+              f"first {n_pts} candidates of {blocks.numel()} blocks' rows, and each query's nearest): mean "
+              f"{float(u.mean()):.3f}, max {float(u.max()):.3f}; beyond their budget eps_i: {int((u > e_u).sum())}; "
+              "by |t| = (alpha/2) |ln d^2|:")
+        edges = [0, 1, 2, 4, 8, 16, 32, 64, math.inf]
+        for lo, hi in zip(edges[:-1], edges[1:]):
+            sel = (t >= lo) & (t < hi)
+            if bool(sel.any()):
+                print(f"    |t| in [{lo}, {hi}): {int(sel.sum())} pairs, ulps mean {float(u[sel].mean()):.3f}, "
+                      f"max {float(u[sel].max()):.3f}; budget eps_i {float(e_u[sel].min()):.2f}-"
+                      f"{float(e_u[sel].max()):.2f} ulps, max ulps / eps_i {float((u[sel] / e_u[sel]).max()):.3f}")
+
+    def far_flipped(p, lay, ah, rects, blocks, fk):
+        # B5's plain sweep with one more cell a block in its mask (the cell's
+        # count and z-sum zeroed for that block alone): the occupied cell
+        # outside the block's rectangle nearest to its first query, which an
+        # off-by-one rectangle test would drop.  Returns sum w of the
+        # blocks' queries and their rows.
+        ix, iy, occupied = p.far[4].long(), p.far[5].long(), p.far[2] > 0
+        out, rows = [], []
+        for b in blocks.tolist():
+            r = rects[b].long()
+            inside = (ix >= r[0]) & (ix <= r[1]) & (iy >= r[2]) & (iy <= r[3])
+            q0 = b * p.block_q
+            d2 = (p.far[0] - lay.qx_v[q0]) ** 2 + (p.far[1] - lay.qy_v[q0]) ** 2
+            cell = int(torch.where(occupied & ~inside, d2, math.inf).argmin())
+            cnt, zs = p.far[2].clone(), p.far[3].clone()
+            cnt[cell], zs[cell] = 0.0, 0.0
+            sl = slice(q0, q0 + p.block_q)
+            out.append(phase2_far_aggregates_plain(lay.qx_v[sl], lay.qy_v[sl], ah[sl], rects[b:b + 1],
+                                                   (*p.far[:2], cnt, zs, *p.far[4:]), **fk)[0])
+            rows.append(torch.arange(q0, q0 + p.block_q, device=dev))
+        return torch.cat(out), torch.cat(rows)
+
     # ------------------------------------------------ 7. B4, B5 vs plain
     print("== 7. far-field kernels B4 (near.cu) and B5 (far.cu) vs their plain versions (aidw-pod-1m "
           "far-field plan, serving batch n=65536)", flush=True)
@@ -844,12 +967,21 @@ def farfield_phases(*, dev, params, golden, eps, data, queries, sync, maxerr, ti
         f_k = phase2_far_aggregates(*far_args, p.far, **fk)
         f_p = phase2_far_aggregates_plain(*far_args, p.far, **fk)
         sync()
-        e_n, same_n, same_min = hold(f"B4 {name}", n_k, n_p, dtype)
-        e_f, same_f, _ = hold(f"B5 {name}", f_k, f_p, dtype)
+        # float32: each query's tolerance from its terms (the weights come
+        # from the special-function units); float64: SUM_ULPS
+        n_tol = phase2_near_tolerance(*near_args, **nk) if dtype == f32 else None
+        f_tol = phase2_far_tolerance(*far_args, p.far, **fk) if dtype == f32 else None
+        r_n, e_n, same_n, same_min = hold(f"B4 {name}", n_k, n_p, dtype, n_tol)
+        r_f, e_f, same_f, _ = hold(f"B5 {name}", f_k, f_p, dtype, f_tol)
+        nb = near.rects.shape[0]
+        sampled = torch.as_tensor(np.sort(np.random.default_rng(7).choice(nb, min(N_BLOCKS, nb), replace=False)),
+                                  device=dev)
+        if dtype == f32:
+            term_ulps(p, lay, near, ah, sampled[:16])
         # controls, each a plain sweep of the same inputs less a little:
         # B4 without its first tile, and without the first point of each row;
-        # B5 without its first tile of cells, and without one cell (the
-        # occupied cell of median count)
+        # B5 without its first tile of cells, without one cell (the occupied
+        # cell of median count), and with one more cell a block masked
         sent = coord_sentinel(dtype, dev)
 
         def near_less(drop):
@@ -860,41 +992,56 @@ def farfield_phases(*, dev, params, golden, eps, data, queries, sync, maxerr, ti
             cnt, zs = torch.where(drop, 0.0, p.far[2]), torch.where(drop, 0.0, p.far[3])
             return phase2_far_aggregates_plain(*far_args, (*p.far[:2], cnt, zs, *p.far[4:]), **fk)
 
+        def off(k, pl, tol, rows=None):
+            # the control's sum w against the plain one, in tolerances
+            pl, tol = pl[0], None if tol is None else tol[0]
+            if rows is not None:
+                pl, tol = pl[rows], None if tol is None else tol[rows]
+            return off_by(k, pl, dtype, tol)
+
         drop = torch.zeros_like(near.cand_x, dtype=torch.bool)
         drop[:, :p.p2_block_d] = True
-        e_ntile = ulps(near_less(drop)[0], n_p[0], dtype)
+        c_ntile = off(near_less(drop)[0], n_p, n_tol)
         drop = torch.zeros_like(near.cand_x, dtype=torch.bool)
         drop[:, 0] = True
-        e_npt = ulps(near_less(drop)[0], n_p[0], dtype)
+        c_npt = off(near_less(drop)[0], n_p, n_tol)
         drop = torch.zeros_like(p.far[2], dtype=torch.bool)
         drop[:p.p2_far_block_d] = True
-        e_ftile = ulps(far_less(drop)[0], f_p[0], dtype)
+        c_ftile = off(far_less(drop)[0], f_p, f_tol)
         occupied = torch.nonzero(p.far[2] > 0).reshape(-1)
         median_cell = occupied[torch.argsort(p.far[2][occupied], stable=True)[occupied.numel() // 2]]
         drop = torch.zeros_like(p.far[2], dtype=torch.bool)
         drop[median_cell] = True
-        e_fcell = ulps(far_less(drop)[0], f_p[0], dtype)
+        c_fcell = off(far_less(drop)[0], f_p, f_tol)
+        flipped, flip_rows = far_flipped(p, lay, ah, near.rects, sampled, fk)
+        c_flip = off(flipped, f_p, f_tol, flip_rows)
         z_pp = z_of(*n_p, *f_p)
         ez_n, ez_f = maxerr(z_of(*n_k, *f_p), z_pp), maxerr(z_of(*n_p, *f_k), z_pp)
         full = p.p2_capacity // p.p2_block_d
         short = int((near.num_tiles < full).sum())
-        print(f"  B4 {name}: sum_w, sum_wz within {e_n:.2f} ulps (tolerance {SUM_ULPS}), all four outputs "
+        rule = "the per-query tolerance" if dtype == f32 else f"{SUM_ULPS} ulps"
+        print(f"  B4 {name}: sum_w, sum_wz within {r_n:.4f} of {rule} ({e_n:.2f} ulps), all four outputs "
               f"bitwise equal: {same_n}; min d^2 and hit z equal: {same_min}; z max abs err {ez_n:.3e}; "
               f"{short} of {near.num_tiles.shape[0]} rows walk fewer than {full} tiles")
-        print(f"  B4 {name} controls: the plain sweep without its first tile is off by {e_ntile:.3e} ulps, "
-              f"without the first point of each row by {e_npt:.3e} ulps")
-        print(f"  B5 {name}: sum_w, sum_wz within {e_f:.2f} ulps (tolerance {SUM_ULPS}), bitwise equal: {same_f}; "
+        if dtype == f32:
+            rel = [(t / s.double().abs()).median() / EPS32 for t, s in zip(n_tol + f_tol, n_p[:2] + f_p)]
+            print(f"  float32 tolerances, median over queries in ulps of the sum: B4 sum_w {float(rel[0]):.1f}, "
+                  f"sum_wz {float(rel[1]):.1f}; B5 sum_w {float(rel[2]):.1f}, sum_wz {float(rel[3]):.1f}")
+        print(f"  B4 {name} controls (in tolerances, limit 1): the plain sweep without its first tile is off by "
+              f"{c_ntile:.3e}, without the first point of each row by {c_npt:.3e}")
+        print(f"  B5 {name}: sum_w, sum_wz within {r_f:.4f} of {rule} ({e_f:.2f} ulps), bitwise equal: {same_f}; "
               f"z max abs err {ez_f:.3e}")
-        print(f"  B5 {name} controls: the plain sweep without its first tile of cells is off by {e_ftile:.3e} "
-              f"ulps, without cell {int(median_cell)} (count {float(p.far[2][median_cell])}, the median of "
-              f"{occupied.numel()} occupied cells) by {e_fcell:.3e} ulps", flush=True)
-        check(min(e_ntile, e_npt, e_ftile, e_fcell) > SUM_ULPS,
-              f"the B4/B5 tolerance catches a lost tile, point and cell ({name})")
+        print(f"  B5 {name} controls (in tolerances): the plain sweep without its first tile of cells is off by "
+              f"{c_ftile:.3e}, without cell {int(median_cell)} (count {float(p.far[2][median_cell])}, the median of "
+              f"{occupied.numel()} occupied cells) by {c_fcell:.3e}, with one more cell masked in each of "
+              f"{sampled.numel()} blocks by {c_flip:.3e}", flush=True)
+        check(min(c_ntile, c_npt, c_ftile, c_fcell, c_flip) >= 10,
+              f"the B4/B5 check fails a lost tile, point and cell and a flipped mask cell by 10x or more ({name})")
         check(short > 0, "some near rows walk fewer tiles than the capacity")
         if dtype == f32:
             ff_errs = {"near_weight": ez_n, "far_cell": ez_f}
             ff32 = (p, lay, near, ah)
-        del n_k, n_p, f_k, f_p, drop
+        del n_k, n_p, f_k, f_p, drop, n_tol, f_tol
 
     # ---------------------------------------------------- 8. golden pin
     print("== 8. golden far-field pin (ffpin) on the card", flush=True)
@@ -1004,14 +1151,16 @@ def farfield_phases(*, dev, params, golden, eps, data, queries, sync, maxerr, ti
                                  device=dev)
         rows = (blocks[:, None] * plan_ff.block_q + torch.arange(plan_ff.block_q, device=dev)).reshape(-1)
         near_s, far_s = near_of(lay, near, ah, plan_ff.block_q, blocks)
-        n_p = phase2_near_weights_plain(*near_s, block_q=plan_ff.block_q, tile_d=plan_ff.p2_block_d)
-        f_p = phase2_far_aggregates_plain(*far_s, plan_ff.far, block_q=plan_ff.block_q,
-                                          tile_d=plan_ff.p2_far_block_d)
-        e_n, same_n, _ = hold(f"B4 batch n={n}", tuple(o[rows] for o in n_k), n_p, f32)
-        e_f, same_f, _ = hold(f"B5 batch n={n}", tuple(o[rows] for o in f_k), f_p, f32)
+        nk = dict(block_q=plan_ff.block_q, tile_d=plan_ff.p2_block_d)
+        fk = dict(block_q=plan_ff.block_q, tile_d=plan_ff.p2_far_block_d)
+        n_p, n_tol = phase2_near_weights_plain(*near_s, **nk), phase2_near_tolerance(*near_s, **nk)
+        f_p, f_tol = (phase2_far_aggregates_plain(*far_s, plan_ff.far, **fk),
+                      phase2_far_tolerance(*far_s, plan_ff.far, **fk))
+        r_n, e_n, same_n, _ = hold(f"B4 batch n={n}", tuple(o[rows] for o in n_k), n_p, f32, n_tol)
+        r_f, e_f, same_f, _ = hold(f"B5 batch n={n}", tuple(o[rows] for o in f_k), f_p, f32, f_tol)
         print(f"  batch n={n} seed={seed}: B4 and B5 on {blocks.numel()} of its {nb} query blocks against their "
-              f"plain versions: within {e_n:.2f} and {e_f:.2f} ulps (tolerance {SUM_ULPS}), bitwise equal: "
-              f"{same_n} and {same_f}", flush=True)
+              f"plain versions: within {r_n:.4f} and {r_f:.4f} of the per-query tolerance ({e_n:.2f} and "
+              f"{e_f:.2f} ulps), bitwise equal: {same_n} and {same_f}", flush=True)
         del lay, near, ah, near_args, far_args, n_k, f_k
     qx, qy = batches[0]
     z2, a2, _ = execute_with_stats(plan_ff, qx, qy)
@@ -1088,13 +1237,20 @@ def farfield_phases(*, dev, params, golden, eps, data, queries, sync, maxerr, ti
     for name, (kern, plain, n_pairs, ops, n_bytes) in specs.items():
         ms = time_ms(kern, 10)
         plain_ms = time_ms(plain, 1, warmup=0)
-        bound_ms, bound_by = bound(ops, n_bytes, 1)
+        # a float32 pair's weight also takes one lg2 and one exp2 on the
+        # special-function units (MUFU_PER_PAIR)
+        bound_ms, bound_by = bound(ops, n_bytes, 1, sfu_ops=MUFU_PER_PAIR * n_pairs)
         total_ms += ms
         rows.append(dict(name=name, route="cuda", **KERNELS[name], launches=ff_launches[name],
                          max_abs_err=ff_errs[name], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                          bound_by=bound_by, library_ms=None))
+        sass = far_sass(name)
+        walked = n_v * ncp if name == "far_cell" else n_pairs
         print(f"  {name}: {ms} ms (plain {plain_ms} ms, bound {bound_ms} ms by {bound_by}, {n_pairs} pairs, "
-              f"{ops} operations)", flush=True)
+              f"{ops} operations); operations {1e3 * ops / PEAK_OPS['float32']} ms, MUFU "
+              f"{1e3 * MUFU_PER_PAIR * n_pairs / PEAK_SFU} ms, instruction issue of the {walked} pairs the "
+              f"launch walks {1e3 * walked * sass[0] / PEAK_ISSUE} ms ({sass[0]} SASS instructions a pair)",
+              flush=True)
     print(f"  B4 + B5 {total_ms} ms per 65,536-query batch against exact B2's {exact_b2_ms} ms "
           f"(phase 6), {exact_b2_ms / total_ms:.2f}x")
     return rows, ff_walls
@@ -1121,6 +1277,8 @@ def quadtree_phases(*, dev, params, golden, data, queries, sync, maxerr, time_ms
         phase1_alpha_from_candidates,
         phase2_far_nodes,
         phase2_far_nodes_plain,
+        phase2_near_tolerance,
+        phase2_near_weights,
         phase2_near_weights_plain,
     )
 
@@ -1185,7 +1343,7 @@ def quadtree_phases(*, dev, params, golden, data, queries, sync, maxerr, time_ms
         sync()
         per_level = []
         for lv, (k, pl) in enumerate(zip(k_out, p_out)):
-            e, same, _ = hold(f"B6 {name} level {lv}", k, pl, dtype)
+            _, e, same, _ = hold(f"B6 {name} level {lv}", k, pl, dtype)
             per_level.append((e, same, float(levels[lv][2].float().mean()), int(levels[lv][2].max()),
                               p.qt_levels[lv][3]))
         e_drop = level_ulps(b6(lay, ah, levels, p.block_q, plain=True, drop_first=True), p_out, dtype)
@@ -1196,10 +1354,18 @@ def quadtree_phases(*, dev, params, golden, data, queries, sync, maxerr, time_ms
         print(f"  B6 {name} controls: the plain sweep with each row's first closed node dropped is off by "
               f"{e_drop:.3e} ulps, without the dipole term by {e_dip:.3e} ulps", flush=True)
         check(min(e_drop, e_dip) > SUM_ULPS, f"the B6 tolerance catches a lost node and a lost dipole ({name})")
+        # B4 on the quadtree plan's near field: float32 within the per-query
+        # tolerance of its terms, float64 within SUM_ULPS
+        near = _near_field(p, lay.cx_v, lay.cy_v)
+        near_args = (lay.qx_v, lay.qy_v, ah, near.cand_x, near.cand_y, near.cand_z, near.num_tiles)
+        nk = dict(block_q=p.block_q, tile_d=p.p2_block_d)
+        nsum = phase2_near_weights_plain(*near_args, **nk)
+        n_tol = phase2_near_tolerance(*near_args, **nk) if dtype == f32 else None
+        r_n, e_n, same_n, same_min = hold(f"B4 quadtree {name}", phase2_near_weights(*near_args, **nk), nsum, dtype,
+                                          n_tol)
+        print(f"  B4 {name} on the quadtree near field: within {r_n:.4f} of its tolerance ({e_n:.2f} ulps), all four "
+              f"outputs bitwise equal: {same_n}; min d^2 and hit z equal: {same_min}", flush=True)
         if dtype == f32:
-            near = _near_field(p, lay.cx_v, lay.cy_v)
-            nsum = phase2_near_weights_plain(lay.qx_v, lay.qy_v, ah, near.cand_x, near.cand_y, near.cand_z,
-                                             near.num_tiles, block_q=p.block_q, tile_d=p.p2_block_d)
 
             def z_all(far):
                 sw, swz = nsum[0], nsum[1]
@@ -1338,10 +1504,19 @@ def quadtree_phases(*, dev, params, golden, data, queries, sync, maxerr, time_ms
         p_out = b6(lay, ah, levels, plan_qt.block_q, rows=(rows, blocks), plain=True)
         e_b, same_b = 0.0, True
         for lv, (k, pl) in enumerate(zip(k_out, p_out)):
-            e, same, _ = hold(f"B6 batch n={n} level {lv}", tuple(o[rows] for o in k), pl, f32)
+            _, e, same, _ = hold(f"B6 batch n={n} level {lv}", tuple(o[rows] for o in k), pl, f32)
             e_b, same_b = max(e_b, e), same_b and same
+        # B4 at this batch's shapes on the same sampled blocks
+        near = _near_field(plan_qt, lay.cx_v, lay.cy_v)
+        cand = (near.cand_x, near.cand_y, near.cand_z, near.num_tiles)
+        nk = dict(block_q=plan_qt.block_q, tile_d=plan_qt.p2_block_d)
+        n_k = phase2_near_weights(lay.qx_v, lay.qy_v, ah, *cand, **nk)
+        near_s = (lay.qx_v[rows], lay.qy_v[rows], ah[rows], *(c[blocks] for c in cand))
+        r_n, e_n, same_n, _ = hold(f"B4 quadtree batch n={n}", tuple(o[rows] for o in n_k),
+                                   phase2_near_weights_plain(*near_s, **nk), f32, phase2_near_tolerance(*near_s, **nk))
         print(f"  batch n={n} seed={seed}: B6 on {blocks.numel()} of its {nb} query blocks, every level, against its "
-              f"plain version: within {e_b:.2f} ulps (tolerance {SUM_ULPS}), bitwise equal: {same_b}", flush=True)
+              f"plain version: within {e_b:.2f} ulps (tolerance {SUM_ULPS}), bitwise equal: {same_b}; B4 on them "
+              f"within {r_n:.4f} of its tolerance ({e_n:.2f} ulps), bitwise equal: {same_n}", flush=True)
         del lay, ah, levels, k_out, p_out
     qx, qy = batches[0]
     z2, a2, _ = execute_with_stats(plan_qt, qx, qy)
@@ -2088,6 +2263,74 @@ def knn_shape_phase(*, params, data, queries, time_ms):
               "all bitwise equal", flush=True)
         check(got[rule] <= 1.03 * got[best], f"knn_launch's pick at n={n} is within 3% of the fastest setting")
     print(f"  phase 31: {time.time() - t_phase:.1f} s", flush=True)
+
+
+def row_shape_phase(*, params, data, queries, time_ms):
+    """Phase 32: B4 and B5 (float32, the ``aidw-pod-1m`` far-field plan) timed
+    with CUDA events at 64, 128 and 256 threads a block, at 8,192, 65,536
+    (the first serving batch and another) and 2^20 queries, beside the
+    wrapper's choice (``kernels/aidw_grid.py:
+    row_launch``), which must be the fastest or within 5% of it; every
+    setting gives the wrapper's bits.  Also prints how far the near rows'
+    lengths spread."""
+    import torch
+
+    from repro_torch.core.aidw import tiny_for
+    from repro_torch.engine import build_plan
+    from repro_torch.engine.execute import _grid_layout, _near_field
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.aidw_grid import phase2_far_aggregates, phase2_near_weights, row_launch
+
+    print("== 32. B4 and B5 block sizes (CUDA events, float32, aidw-pod-1m far-field plan, m = 2^20)", flush=True)
+    t_phase = time.time()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        p = build_plan(*data(torch.float32), params=params, area=1.0, impl="grid", phase2="farfield")
+    fns = {"B4": _build.entry("aidw_near_weight_f32"), "B5": _build.entry("aidw_far_cell_f32")}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    stream = torch.cuda.current_stream().cuda_stream
+    tiny = tiny_for(torch.float32)
+    ncp = p.far[0].shape[0]
+    # a short batch, the first serving batch and another of its size (the
+    # near rows' spread differs from batch to batch), and the 2^20 batch
+    for n, seed in ((8192, 32), SERVING[0], (SERVING[0][0], 32), SERVING[3]):
+        qx, qy = queries(n, seed)
+        lay = _grid_layout(p, qx, qy)
+        near = _near_field(p, lay.cx_v, lay.cy_v)
+        n_v, (nb, c_tot) = lay.qx_v.shape[0], near.cand_x.shape
+        ah = torch.full_like(lay.qx_v, 1.0)  # the sweeps' cost does not depend on alpha
+        q3 = (lay.qx_v.data_ptr(), lay.qy_v.data_ptr(), ah.data_ptr())
+        cand = (near.cand_x, near.cand_y, near.cand_z, near.num_tiles)
+        refs = {"B4": phase2_near_weights(lay.qx_v, lay.qy_v, ah, *cand, block_q=p.block_q, tile_d=p.p2_block_d),
+                "B5": phase2_far_aggregates(lay.qx_v, lay.qy_v, ah, near.rects, p.far, block_q=p.block_q,
+                                            tile_d=p.p2_far_block_d)}
+        args = {"B4": lambda t: (*q3, *(c.data_ptr() for c in cand), n_v, p.block_q, c_tot, p.p2_block_d, t, tiny),
+                "B5": lambda t: (*q3, near.rects.data_ptr(), *(a.data_ptr() for a in p.far), n_v, p.block_q, ncp,
+                                 p.p2_far_block_d, t, tiny)}
+        nt = near.num_tiles.double()
+        print(f"  n={n} seed={seed} ({n_v} queries after the seam split, {nb} rows): near rows walk {int(nt.min())}-{int(nt.max())} "
+              f"tiles of {p.p2_block_d} (mean {float(nt.mean()):.2f}, std {float(nt.std()):.2f})", flush=True)
+        for name, fn in fns.items():
+            rule = row_launch(n_v, sms, block_q=p.block_q, far=name == "B5")
+            got = {}
+            for threads in (64, 128, 256):
+                outs = [torch.empty_like(lay.qx_v) for _ in refs[name]]
+                call = args[name](threads)
+
+                def run():
+                    _build.check(fn(*call, *(o.data_ptr() for o in outs), stream), f"{name} launch")
+
+                got[threads] = time_ms(run, 1 if n == M_FULL else 3)
+                check(all(torch.equal(o, r) for o, r in zip(outs, refs[name])),
+                      f"{name} with {threads} threads gives the wrapper's bits (n={n})")
+            best = min(got, key=got.get)
+            print(f"    {name}: " + ", ".join(f"{t} threads {ms} ms" for t, ms in got.items())
+                  + f"; fastest {best}; row_launch picks {rule} ({sms} SMs), {got[rule] / got[best]:.4f}x the "
+                  "fastest; all bitwise equal", flush=True)
+            check(got[rule] <= 1.05 * got[best],
+                  f"row_launch's pick for {name} at n={n} seed={seed} is within 5% of the fastest")
+        del lay, near, cand, refs
+    print(f"  phase 32: {time.time() - t_phase:.1f} s", flush=True)
 
 
 if __name__ == "__main__":

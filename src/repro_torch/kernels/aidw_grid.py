@@ -21,14 +21,17 @@ of the exact-path and far-field parts of ``repro.kernels.aidw_grid``.
   returned raw.
 * :func:`phase2_far_aggregates` - the far field, ``csrc/far.cu`` (the port of
   ``_far_cell_kernel``): one aggregate term per cell outside the block's near
-  rectangle.
+  rectangle.  :func:`row_launch` picks both kernels' threads a CUDA block.
 * :func:`phase2_far_nodes` - one level of the quadtree far field,
   ``csrc/far_node.cu`` (the port of ``_far_node_kernel``): one aggregate and
   dipole term per closed node of each block's node table.
 
 Each kernel wrapper runs its plain version (beside it, tile by tile as the
 Pallas kernel sums) when given CPU tensors, and launches its kernel or
-raises when given CUDA tensors.
+raises when given CUDA tensors.  In float32 the kernels of B4 and B5 take
+their weights from the special-function units; :func:`phase2_near_tolerance`
+and :func:`phase2_far_tolerance` give the per-query tolerance of their sums
+against the plain versions.
 """
 
 from __future__ import annotations
@@ -40,11 +43,21 @@ import torch
 from repro_torch.core.aidw import AIDWParams, tiny_for
 from repro_torch.core.grid import UniformGrid
 from repro_torch.kernels import _build
-from repro_torch.kernels._common import SUM_RUN, pow_weight, run_sum, sq_dist_tile, weight_tile
-from repro_torch.kernels.aidw_tiled import _check_float, _on_card, _suffix, knn_alpha, weight_sweep
+from repro_torch.kernels._common import (
+    SUM_RUN,
+    pow_weight,
+    run_sum,
+    sfu_sum_tolerance,
+    sfu_term_budget,
+    sfu_weight_eps,
+    sq_dist_tile,
+    weight_tile,
+)
+from repro_torch.kernels.aidw_tiled import _check_float, _on_card, _sm_count, _suffix, knn_alpha, weight_sweep
 
-_NEAR_THREADS = 256
-_FAR_THREADS = 256
+# row_launch halves a CUDA block's threads while the batch has fewer CUDA
+# blocks a SM than this, down to 64 (near.cu) or 128 (far.cu) threads
+_ROW_BLOCKS_PER_SM = 4
 _FAR_NODE_THREADS = 256
 
 
@@ -125,6 +138,27 @@ def _check_blocks(name: str, n: int, block_q: int, rows: int) -> None:
         raise ValueError(f"{name}: {n} queries do not make {rows} blocks of {block_q}")
 
 
+def row_launch(n: int, sms: int, *, block_q: int = 256, far: bool = False) -> int:
+    """Threads a CUDA block of the near-field kernel (``csrc/near.cu``) or,
+    with ``far``, the far-cell kernel (``csrc/far.cu``), one query a thread,
+    for a batch of ``n`` queries in plan blocks of ``block_q`` on a card with
+    ``sms`` multiprocessors.  A CUDA block lies inside one plan block and
+    sweeps that block's whole row (its near candidates, or every cell), so a
+    batch of few plan blocks gives few CUDA blocks a SM: near rows differ in
+    length (3 to 35 tiles in the 65,536 batch of ``aidw-pod-1m``), and equal
+    far rows leave SMs idle when the blocks do not share evenly.  Smaller
+    CUDA blocks spread the work more evenly; the far kernel, which restages
+    every cell per CUDA block, stops at 128.  Halves from 256 while the batch
+    has fewer than ``_ROW_BLOCKS_PER_SM`` CUDA blocks a SM, down to 64 or
+    128 (``chip_smoke.py`` phase 32 times 64, 128 and 256); always a divisor
+    of ``block_q``.  A query's sums do not depend on it."""
+    fewest = 128 if far else 64
+    threads = 256
+    while threads > fewest and n < threads * _ROW_BLOCKS_PER_SM * sms:
+        threads //= 2
+    return math.gcd(block_q, threads)
+
+
 def phase2_near_weights_plain(qx, qy, alpha_half, cand_x, cand_y, cand_z, num_tiles, *, block_q: int,
                               tile_d: int):
     """Plain version of :func:`phase2_near_weights`: ``weight_tile`` tile by
@@ -181,11 +215,35 @@ def phase2_near_weights(qx, qy, alpha_half, cand_x, cand_y, cand_z, num_tiles, *
     fn = _build.entry(f"aidw_near_weight_{_suffix(qx.dtype)}")
     err = fn(qx.data_ptr(), qy.data_ptr(), alpha_half.data_ptr(), cand_x.data_ptr(), cand_y.data_ptr(),
              cand_z.data_ptr(), num_tiles.data_ptr(), n, block_q, c_tot, tile_d,
-             math.gcd(block_q, _NEAR_THREADS), tiny_for(qx.dtype), *(o.data_ptr() for o in out),
-             torch.cuda.current_stream(qx.device).cuda_stream)
+             row_launch(n, _sm_count(qx.device.index), block_q=block_q), tiny_for(qx.dtype),
+             *(o.data_ptr() for o in out), torch.cuda.current_stream(qx.device).cuda_stream)
     _build.check(err, "phase2_near_weights launch")
     _build.LAUNCHES["near_weight"] += 1
     return tuple(out)
+
+
+def phase2_near_tolerance(qx, qy, alpha_half, cand_x, cand_y, cand_z, num_tiles, *, block_q: int, tile_d: int):
+    """Per-query tolerance ``(tol_w, tol_wz)``, float64 ``(n,)`` each, of
+    the float32 kernel's ``sum_w`` and ``sum_wz`` (``csrc/near.cu``, weights
+    on the special-function units) against :func:`phase2_near_weights_plain`
+    on the same inputs: ``sfu_sum_tolerance`` of the terms ``w`` and ``w z``
+    that each query's walked tiles hold (``kernels/_common.py``)."""
+    n = qx.shape[0]
+    nb, c_tot = cand_x.shape
+    acc = torch.zeros((4, n), dtype=torch.float64, device=qx.device)
+    qx3, qy3 = qx.reshape(nb, block_q, 1), qy.reshape(nb, block_q, 1)
+    ah2 = alpha_half[:, None]
+    tiles = torch.clamp(num_tiles.long(), 0, c_tot // tile_d)
+    for j in range(int(tiles.max()) if nb else 0):
+        s = slice(j * tile_d, (j + 1) * tile_d)
+        d2 = sq_dist_tile(qx3, qy3, cand_x[:, None, s], cand_y[:, None, s]).reshape(n, tile_d)
+        dz = cand_z[:, None, s].expand(nb, block_q, tile_d).reshape(n, tile_d)
+        w, eps = pow_weight(d2, ah2), sfu_weight_eps(d2, ah2)
+        live = (j < tiles).repeat_interleave(block_q)
+        for i, term in ((0, w), (2, w * dz)):
+            acc[i:i + 2] += torch.where(live, torch.stack(sfu_term_budget(term, eps)), 0.0)
+    walked = tiles.repeat_interleave(block_q)
+    return tuple(sfu_sum_tolerance(acc[i], acc[i + 1], tile_d, walked) for i in (0, 2))
 
 
 def phase2_far_aggregates_plain(qx, qy, alpha_half, rects, far, *, block_q: int, tile_d: int):
@@ -207,6 +265,31 @@ def phase2_far_aggregates_plain(qx, qy, alpha_half, rects, far, *, block_q: int,
         sum_w = sum_w + run_sum(w * fcnt[None, s])[:, 0]
         sum_wz = sum_wz + run_sum(w * fzs[None, s])[:, 0]
     return sum_w, sum_wz
+
+
+def phase2_far_tolerance(qx, qy, alpha_half, rects, far, *, block_q: int, tile_d: int):
+    """Per-query tolerance ``(tol_w, tol_wz)``, float64 ``(n,)`` each, of
+    the float32 kernel's sums (``csrc/far.cu``, weights on the
+    special-function units) against :func:`phase2_far_aggregates_plain` on
+    the same inputs: ``sfu_sum_tolerance`` of the terms ``w count`` and ``w
+    z_sum`` of the cells outside each block's rectangle
+    (``kernels/_common.py``)."""
+    fx, fy, fcnt, fzs, fix, fiy = far
+    n = qx.shape[0]
+    acc = torch.zeros((4, n), dtype=torch.float64, device=qx.device)
+    rq = rects.long().repeat_interleave(block_q, dim=0)
+    xlo, xhi, ylo, yhi = (rq[:, i:i + 1] for i in range(4))
+    qx2, qy2, ah2 = qx[:, None], qy[:, None], alpha_half[:, None]
+    tiles = fx.shape[0] // tile_d
+    for j in range(tiles):
+        s = slice(j * tile_d, (j + 1) * tile_d)
+        d2 = sq_dist_tile(qx2, qy2, fx[None, s], fy[None, s])
+        ix, iy = fix[None, s], fiy[None, s]
+        outside = ~((ix >= xlo) & (ix <= xhi) & (iy >= ylo) & (iy <= yhi))
+        w, eps = torch.where(outside, pow_weight(d2, ah2), 0.0), sfu_weight_eps(d2, ah2)
+        for i, term in ((0, w * fcnt[None, s]), (2, w * fzs[None, s])):
+            acc[i:i + 2] += torch.stack(sfu_term_budget(term, eps))
+    return tuple(sfu_sum_tolerance(acc[i], acc[i + 1], tile_d, tiles) for i in (0, 2))
 
 
 def phase2_far_aggregates(qx, qy, alpha_half, rects, far, *, block_q: int, tile_d: int):
@@ -235,9 +318,9 @@ def phase2_far_aggregates(qx, qy, alpha_half, rects, far, *, block_q: int, tile_
     sum_w, sum_wz = torch.empty_like(qx), torch.empty_like(qx)
     fn = _build.entry(f"aidw_far_cell_{_suffix(qx.dtype)}")
     err = fn(qx.data_ptr(), qy.data_ptr(), alpha_half.data_ptr(), rects.data_ptr(),
-             *(a.data_ptr() for a in far), n, block_q, ncp, tile_d, math.gcd(block_q, _FAR_THREADS),
-             tiny_for(qx.dtype), sum_w.data_ptr(), sum_wz.data_ptr(),
-             torch.cuda.current_stream(qx.device).cuda_stream)
+             *(a.data_ptr() for a in far), n, block_q, ncp, tile_d,
+             row_launch(n, _sm_count(qx.device.index), block_q=block_q, far=True), tiny_for(qx.dtype),
+             sum_w.data_ptr(), sum_wz.data_ptr(), torch.cuda.current_stream(qx.device).cuda_stream)
     _build.check(err, "phase2_far_aggregates launch")
     _build.LAUNCHES["far_cell"] += 1
     return sum_w, sum_wz

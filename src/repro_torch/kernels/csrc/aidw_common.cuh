@@ -8,19 +8,24 @@
 // same bits as the plain PyTorch version's, near-ties pick the same
 // neighbours, and the exact-hit test `min d^2 <= eps` flips the same way.
 // exp/log/cos/sqrt are the precise library functions (no fast math), with
-// one exception: the float32 weight of the exact sweep (pow_weight) is
-// 2^(-(alpha/2) log2 d^2) on the special-function units, lg2.approx and
-// ex2.approx, one MUFU op each.  Its rounding is dominated by t = (alpha/2)
-// ln d^2, whose float32 rounding alone is |t| 2^-24 relative in w (|t|
-// reaches 30 and more), so the units' errors (2^-22.6 absolute in log2,
-// about 2 ulps in 2^x) stay at that level.  The plain PyTorch versions
-// (kernels/_common.py: pow_weight) keep torch.exp/torch.log: the kernels
-// are held against them at 64 ulps of z, and the far-field kernels, whose
-// checks against their plain versions are bitwise, keep exp_p/log_p.
+// one exception: the float32 weight of every exact and near sweep
+// (pow_weight) is 2^(-(alpha/2) log2 d^2) on the special-function units,
+// lg2.approx and ex2.approx, one MUFU op each.  Its rounding is dominated by
+// t = (alpha/2) ln d^2, whose float32 rounding alone is |t| 2^-24 relative
+// in w (|t| reaches 30 and more), so the units' errors (2^-22.6 absolute in
+// log2, about 2 ulps in 2^x) stay at that level.  The plain PyTorch
+// versions (kernels/_common.py: pow_weight) keep torch.exp/torch.log: the
+// exact sweeps are held against them at 64 ulps of z, the near and far-cell
+// sums (near.cu, far.cu) within a per-query budget derived from the terms
+// (kernels/_common.py: sfu_sum_tolerance).  far_node.cu keeps exp_p/log_p
+// and its bitwise check.  Float64 keeps the precise functions everywhere.
 #pragma once
 
 #include <cuda_runtime.h>
+#include <float.h>
 #include <math.h>
+
+#include "aoas.cuh"
 
 namespace aidw {
 
@@ -54,6 +59,32 @@ constexpr int kSumRun = 32;
 // A block's dynamic shared memory on sm_90 (weight.cu and knn.cu stage data
 // past 48 KiB after cudaFuncSetAttribute).
 constexpr size_t kMaxSharedBytes = 227 * 1024;
+
+// Asynchronous copies from global to shared memory (sm_80 and later): 16
+// bytes, or one value, a copy; cp_async_wait_all waits for the calling
+// thread's copies, and a barrier after it makes every thread's visible.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_elem(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_elem(double* dst, const double* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+// The padding coordinate of core/layouts.py: coord_sentinel, finfo.max / 4:
+// its d^2 from any finite query overflows to +inf.
+template <typename T>
+__device__ __forceinline__ T coord_sentinel();
+template <>
+__device__ __forceinline__ float coord_sentinel<float>() { return FLT_MAX / 4; }
+template <>
+__device__ __forceinline__ double coord_sentinel<double>() { return DBL_MAX / 4; }
 
 // d^2 = dx*dx + dy*dy, rounded after every operation.  A pad point at the
 // sentinel coordinate (finfo.max / 4) overflows to +inf.
@@ -275,10 +306,12 @@ __device__ __forceinline__ float ex2_sfu(float x) {
 // header); float64: exp(neg_ah * log x) with the precise library
 // functions.  The clamp keeps kernels/_common.py's semantics: a NaN d^2
 // takes tiny, and a sentinel pad point (d^2 = +inf) gets log = +inf, t =
-// -inf and w = +0.  Every exact weight loop (weight_tile, below) takes its
-// weights from here, so all exact variants keep one set of bits.
+// -inf and w = +0; in float32 it is fmaxf, one FMNMX, which gives the same
+// value as the compare and select of float64 for every d^2, NaN included.
+// Every exact and near weight loop (weight_tile, run_group, below) takes
+// its weights from here, so all exact variants keep one set of bits.
 __device__ __forceinline__ float pow_weight(float neg_ah, float d2, float tiny) {
-  return ex2_sfu(mul_rn(neg_ah, lg2_sfu(d2 > tiny ? d2 : tiny)));
+  return ex2_sfu(mul_rn(neg_ah, lg2_sfu(fmaxf(d2, tiny))));
 }
 __device__ __forceinline__ double pow_weight(double neg_ah, double d2, double tiny) {
   return exp_p(mul_rn(neg_ah, log_p(d2 > tiny ? d2 : tiny)));
@@ -340,6 +373,85 @@ __device__ __forceinline__ void weight_tile(T px, T py, T neg_ah, int t0, int t1
   }
   sum_w = add_rn(sum_w, tile_w);
   sum_wz = add_rn(sum_wz, tile_wz);
+}
+
+
+// The run-summed sweeps of near.cu (NEAR) and far.cu read staged vectors
+// {x, y, p, r}: near points {x, y, z, pad}, far cells {cent_x, cent_y,
+// count, z_sum}.  A pair's terms are (w, w p) in a near sweep and (w p,
+// w r) in a far-cell sweep, with w = pow_weight(neg_ah, d^2, tiny); a near
+// sweep also keeps the first minimum d^2 and its p with a strict `<`.
+
+// kWeightGroup pairs of such a sweep, j..j + U - 1: the U loads, d^2 and
+// weights first, then each pair's terms added to the run sums in point
+// order, so the bits do not depend on U.  NEAR tests the group's minimum
+// d^2 (group_min, which skips a NaN) against the running minimum once and
+// updates it point by point only when the test passes: no point of a group
+// that fails it is below the minimum, so the first minimum and its p are
+// those of the one-by-one rule.
+template <typename T, int U, bool NEAR>
+__device__ __forceinline__ void run_group(const T* s, int j, T px, T py, T neg_ah, T tiny, T& run_a, T& run_b,
+                                          T& min_d2, T& hit_z) {
+  T x[U], y[U], p[U], r[U], d2[U], w[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) staged_vec(s, j + u, x[u], y[u], p[u], r[u]);
+#pragma unroll
+  for (int u = 0; u < U; ++u) d2[u] = sq_dist(px, py, x[u], y[u]);
+#pragma unroll
+  for (int u = 0; u < U; ++u) w[u] = pow_weight(neg_ah, d2[u], tiny);
+  if constexpr (NEAR) {
+    if (group_min(d2) < min_d2) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (d2[u] < min_d2) {
+          min_d2 = d2[u];
+          hit_z = p[u];
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    run_a = add_rn(run_a, NEAR ? w[u] : mul_rn(w[u], p[u]));
+    run_b = add_rn(run_b, mul_rn(w[u], NEAR ? p[u] : r[u]));
+  }
+}
+
+// Staged vectors a <= j < b (a run boundary, b - a a multiple of kSumRun)
+// summed into a tile's sums in runs of kSumRun (each run from 0, left to
+// right, then added to the tile sum): kernels/_common.py: run_sum's order.
+template <typename T, bool NEAR>
+__device__ __forceinline__ void run_span(const T* s, int a, int b, T px, T py, T neg_ah, T tiny, T& tile_a,
+                                         T& tile_b, T& min_d2, T& hit_z) {
+  for (int j0 = a; j0 < b; j0 += kSumRun) {
+    T run_a = T(0), run_b = T(0);
+#pragma unroll
+    for (int g = 0; g < kSumRun / kWeightGroup; ++g)
+      run_group<T, kWeightGroup, NEAR>(s, j0 + g * kWeightGroup, px, py, neg_ah, tiny, run_a, run_b, min_d2, hit_z);
+    tile_a = add_rn(tile_a, run_a);
+    tile_b = add_rn(tile_b, run_b);
+  }
+}
+
+// One stage of such a sweep: the cnt staged vectors of points base..base +
+// cnt - 1 of the row (base and cnt multiples of kSumRun), the tile sums
+// carried across stages and folded into the totals at every multiple of
+// tile_d (the plan tile, a multiple of kSumRun), then restarted from 0.
+template <typename T, bool NEAR>
+__device__ __forceinline__ void run_stage(const T* s, int base, int cnt, int tile_d, T px, T py, T neg_ah, T tiny,
+                                          T& tile_a, T& tile_b, T& sum_a, T& sum_b, T& min_d2, T& hit_z) {
+  for (int t = 0; t < cnt;) {
+    const int tile_end = ((base + t) / tile_d + 1) * tile_d - base;
+    const int end = min(cnt, tile_end);
+    run_span<T, NEAR>(s, t, end, px, py, neg_ah, tiny, tile_a, tile_b, min_d2, hit_z);
+    t = end;
+    if (end == tile_end) {
+      sum_a = add_rn(sum_a, tile_a);
+      sum_b = add_rn(sum_b, tile_b);
+      tile_a = T(0);
+      tile_b = T(0);
+    }
+  }
 }
 
 }  // namespace aidw

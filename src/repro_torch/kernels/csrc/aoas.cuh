@@ -64,6 +64,37 @@ __device__ __forceinline__ void stage_struct(double* s, int i, const double* __r
   p[1] = src[1];
 }
 
+// Four values staged as one vector (the near and far-cell sweeps: {x, y,
+// z, pad} or {cent_x, cent_y, count, z_sum}): one 16-byte access in
+// float32, two in float64.
+__device__ __forceinline__ void stage_vec(float* s, int i, float a, float b, float c, float d) {
+  reinterpret_cast<float4*>(s)[i] = make_float4(a, b, c, d);
+}
+
+__device__ __forceinline__ void stage_vec(double* s, int i, double a, double b, double c, double d) {
+  double2* p = reinterpret_cast<double2*>(s) + 2 * i;
+  p[0] = make_double2(a, b);
+  p[1] = make_double2(c, d);
+}
+
+__device__ __forceinline__ void staged_vec(const float* s, int i, float& a, float& b, float& c, float& d) {
+  const float4 p = reinterpret_cast<const float4*>(s)[i];
+  a = p.x;
+  b = p.y;
+  c = p.z;
+  d = p.w;
+}
+
+__device__ __forceinline__ void staged_vec(const double* s, int i, double& a, double& b, double& c, double& d) {
+  const double2* p = reinterpret_cast<const double2*>(s) + 2 * i;
+  const double2 u = p[0];
+  const double2 v = p[1];
+  a = u.x;
+  b = u.y;
+  c = v.x;
+  d = v.y;
+}
+
 __device__ __forceinline__ void staged_xyz(const float* s, int i, float& x, float& y, float& z) {
   const float4 p = reinterpret_cast<const float4*>(s)[i];
   x = p.x;

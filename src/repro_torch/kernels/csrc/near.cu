@@ -7,33 +7,44 @@
 // Replaces src/repro/kernels/aidw_grid.py:_near_weight_kernel (launched by
 // aidw_grid.py:phase2_near_weights).
 //
-// Design: weight.cu's sweep (one thread per query, tiles streamed through
-// shared memory, every thread reading the same point) over a candidate row
-// per query block, with knn.cu's tile table.  Query q reads row q / block_q;
-// the CUDA block's thread count divides block_q, so a CUDA block never spans
-// two rows and all its threads walk the same nt[row] tiles of tile_d points.
-// The tail past nt[row] * tile_d is sentinel padding (weight 0, d^2 = +inf)
-// and is not read.  Each tile is summed into its own accumulators in runs
-// of kSumRun points (each run left to right, then the run sums left to
+// The sum order, which fixes the bits: query q reads row q / block_q and
+// walks its first nt[row] tiles of tile_d points (the tail is sentinel
+// padding, weight 0, and is not read).  Each tile is summed in runs of
+// kSumRun points (each run left to right from 0, then the run sums left to
 // right: the plain version's run_sum order) and the tile sums are folded
-// into the running totals at the tile_d boundaries, the Pallas kernel's tile
-// boundaries, with no compensation.  A tile wider than kNearChunk is staged
-// through shared memory in kNearChunk-point pieces without breaking its sum
-// (tile_d and kNearChunk are multiples of kSumRun).  The minimum uses a
-// strict `<`, which keeps the first index, as weight_tile's rule does.  No
-// atomics: results are the same bits from run to run.
+// into the running totals at the tile_d boundaries, the Pallas kernel's,
+// with no compensation.  The minimum keeps the first index with a strict
+// `<`.  No atomics: the same bits run to run, whatever the block size.
 //
-// w = exp(-ah * log(max(d^2, tiny))) with precise expf/logf, never powf and
-// never fast math; d^2 through the _rn helpers of aidw_common.cuh.
+// What bounds it on an H100, the 65,536-query serving batch of aidw-pod-1m
+// (1.95e9 pairs): in float32 a pair costs two MUFU ops (aidw_common.cuh:
+// pow_weight, lg2 and ex2), 0.93 ms at 16 per SM and clock, and about 16
+// SASS instructions (d^2 5, the clamp, the MUFU ops and their product, the
+// sums 3, a share of the minimum's test and of the load), about 1 ms at 128
+// per SM and clock.  The rows are read from L2, once per CUDA block.  The
+// first design (precise expf/logf, three 4-byte shared loads a pair, one
+// pair at a time, 256 threads for every batch) ran 5.67 ms.
 //
-// What bounds it on an H100: instruction issue, as for weight.cu (the same
-// per-pair loop); the pairs are block_q * nt[row] * tile_d per row, and each
-// candidate row is read once per CUDA block.
+// What the design does about it:
+//  * the weight is pow_weight: one MUFU.LG2 and one MUFU.EX2 in float32;
+//    float64 keeps precise exp/log and its bits;
+//  * each candidate is staged as one {x, y, z, pad} vector (one LDS.128 a
+//    pair), copied with cp.async into the other of two buffers while the
+//    current stage is swept: one barrier a stage;
+//  * the loop takes kWeightGroup points a step (aidw_common.cuh: run_span,
+//    run_group): their loads, d^2 and weights come before the in-order
+//    sums, and one test of the group's minimum d^2 guards the first-minimum
+//    update;
+//  * rows differ in length, and a CUDA block never spans two rows, so the
+//    threads a block come from kernels/aidw_grid.py: near_launch, which
+//    takes fewer for a batch of few rows so they spread over more SMs.
 #include "aidw_common.cuh"
 
 namespace aidw {
 
-constexpr int kNearChunk = 1024;  // points staged in shared memory at a time
+// one stage buffer: 512 float32 or 256 float64 points of {x, y, z, pad};
+// two buffers a CUDA block
+constexpr int kNearStageBytes = 8 * 1024;
 
 template <typename T>
 __global__ void near_weight_kernel(const T* __restrict__ qx, const T* __restrict__ qy,
@@ -42,9 +53,9 @@ __global__ void near_weight_kernel(const T* __restrict__ qx, const T* __restrict
                                    const int* __restrict__ nt, int block_q, int c_tot, int tile_d,
                                    T tiny, T* __restrict__ sw_out, T* __restrict__ swz_out,
                                    T* __restrict__ md_out, T* __restrict__ hz_out) {
-  __shared__ T sx[kNearChunk];
-  __shared__ T sy[kNearChunk];
-  __shared__ T sz[kNearChunk];
+  constexpr int kStage = kNearStageBytes / (4 * static_cast<int>(sizeof(T)));
+  static_assert(kStage % kSumRun == 0, "a stage holds whole runs");
+  __shared__ __align__(16) T stage[2][4 * kStage];
 
   const long long first_q = static_cast<long long>(blockIdx.x) * blockDim.x;
   const long long q = first_q + threadIdx.x;
@@ -59,38 +70,25 @@ __global__ void near_weight_kernel(const T* __restrict__ qx, const T* __restrict
   const T py = qy[q];
   const T neg_ah = -ah[q];
 
-  T sum_w = T(0), sum_wz = T(0), min_d2 = T(INFINITY), hit_z = T(0);
-  for (int base = 0; base < len; base += tile_d) {
-    const int cnt = min(tile_d, len - base);
-    T tile_w = T(0), tile_wz = T(0);
-    for (int c0 = 0; c0 < cnt; c0 += kNearChunk) {
-      const int cc = min(kNearChunk, cnt - c0);
-      for (int i = threadIdx.x; i < cc; i += blockDim.x) {
-        sx[i] = rx[base + c0 + i];
-        sy[i] = ry[base + c0 + i];
-        sz[i] = rz[base + c0 + i];
-      }
-      __syncthreads();
-      for (int j0 = 0; j0 < cc; j0 += kSumRun) {
-        T run_w = T(0), run_wz = T(0);
-        for (int j = j0; j < j0 + kSumRun; ++j) {
-          const T d2 = sq_dist(px, py, sx[j], sy[j]);
-          const T zj = sz[j];
-          const T w = exp_p(mul_rn(neg_ah, log_p(d2 > tiny ? d2 : tiny)));
-          run_w = add_rn(run_w, w);
-          run_wz = add_rn(run_wz, mul_rn(w, zj));
-          if (d2 < min_d2) {
-            min_d2 = d2;
-            hit_z = zj;
-          }
-        }
-        tile_w = add_rn(tile_w, run_w);
-        tile_wz = add_rn(tile_wz, run_wz);
-      }
-      __syncthreads();
+  // stage s holds points [base, base + kStage) of the row as {x, y, z, -}
+  const auto issue = [&](int s, int base) {
+    T* buf = stage[s & 1];
+    const int cnt = min(kStage, len - base);
+    for (int i = threadIdx.x; i < cnt; i += blockDim.x) {
+      cp_async_elem(buf + 4 * i, rx + base + i);
+      cp_async_elem(buf + 4 * i + 1, ry + base + i);
+      cp_async_elem(buf + 4 * i + 2, rz + base + i);
     }
-    sum_w = add_rn(sum_w, tile_w);
-    sum_wz = add_rn(sum_wz, tile_wz);
+  };
+
+  T sum_w = T(0), sum_wz = T(0), tile_w = T(0), tile_wz = T(0), min_d2 = T(INFINITY), hit_z = T(0);
+  if (len > 0) issue(0, 0);
+  for (int base = 0, s = 0; base < len; base += kStage, ++s) {
+    cp_async_wait_all();
+    __syncthreads();  // stage s landed; every thread is done with stage s - 1
+    if (base + kStage < len) issue(s + 1, base + kStage);  // lands while this stage is swept
+    run_stage<T, true>(stage[s & 1], base, min(kStage, len - base), tile_d, px, py, neg_ah, tiny, tile_w, tile_wz,
+                       sum_w, sum_wz, min_d2, hit_z);
   }
   sw_out[q] = sum_w;
   swz_out[q] = sum_wz;

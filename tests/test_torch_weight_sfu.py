@@ -14,9 +14,10 @@ versions); here:
   sweep of the same inputs, within 2x the error of the precise exp/log form
   summed in the same order;
 * the sources route every exact weight through ``pow_weight``, every exact
-  tile loop through ``weight_tile``, and the far-field kernels keep
-  ``exp_p``/``log_p``, on which their bitwise checks against their plain
-  versions rest;
+  tile loop through ``weight_tile``, the near-field and far-cell sweeps
+  (``near.cu``, ``far.cu``) through ``run_stage`` to ``pow_weight`` as well,
+  and the quadtree kernel (``far_node.cu``) keeps ``exp_p``/``log_p``, on
+  which its bitwise check against its plain version rests;
 * the wrapper's launch rule, ``kernels/aidw_tiled.py: weight_launch``.
 """
 
@@ -123,7 +124,7 @@ def test_exact_weights_go_through_pow_weight():
     header = _code("aidw_common.cuh")
     f32 = re.search(r"float pow_weight\(float neg_ah, float d2, float tiny\) \{(.*?)\n\}", header, re.S).group(1)
     f64 = re.search(r"double pow_weight\(double neg_ah, double d2, double tiny\) \{(.*?)\n\}", header, re.S).group(1)
-    assert "ex2_sfu(mul_rn(neg_ah, lg2_sfu(d2 > tiny ? d2 : tiny)))" in f32
+    assert "ex2_sfu(mul_rn(neg_ah, lg2_sfu(fmaxf(d2, tiny))))" in f32
     assert "exp_p(mul_rn(neg_ah, log_p(d2 > tiny ? d2 : tiny)))" in f64
     assert "lg2.approx.ftz.f32" in header and "ex2.approx.ftz.f32" in header
     # the special-function forms are reached from pow_weight alone, the
@@ -138,13 +139,22 @@ def test_exact_weights_go_through_pow_weight():
         assert not re.search(r"\b(exp_p|log_p|expf|logf|exp2f|log2f|__expf|__logf|exp|log|pow_weight)\s*\(", src), name
         assert not re.search(r"\bweight_group\(", src), name
         assert re.search(r"\bweight_tile\(", src), name
-    # the far-field kernels keep the precise functions: their checks against
-    # their plain versions (torch.exp/torch.log, summed in the same order)
-    # are bitwise
-    for name in ("near.cu", "far.cu", "far_node.cu"):
+    # the near-field and far-cell sweeps take their weights from pow_weight
+    # too, through run_stage -> run_span -> run_group (held against their
+    # plain versions within a per-query tolerance, tests/test_torch_far_sfu.py)
+    group = re.search(r"void run_group\(.*?\n\}", header, re.S).group(0)
+    assert "pow_weight(neg_ah, d2[u], tiny)" in group
+    assert "run_group<T, kWeightGroup, NEAR>(" in re.search(r"void run_span\(.*?\n\}", header, re.S).group(0)
+    assert "run_span<T, NEAR>(" in re.search(r"void run_stage\(.*?\n\}", header, re.S).group(0)
+    for name, near in (("near.cu", "true"), ("far.cu", "false")):
         src = _code(name)
-        assert "exp_p(" in src and "log_p(" in src, name
-        assert not re.search(r"\b(pow_weight|weight_group|weight_tile)\(", src), name
+        assert not re.search(r"\b(exp_p|log_p|expf|logf|exp2f|log2f|__expf|__logf|exp|log|pow_weight)\s*\(", src), name
+        assert src.count(f"run_stage<T, {near}>(") == 1, name
+    # the quadtree kernel keeps the precise functions: its check against its
+    # plain version (torch.exp/torch.log, summed in the same order) is bitwise
+    src = _code("far_node.cu")
+    assert "exp_p(" in src and "log_p(" in src
+    assert not re.search(r"\b(pow_weight|weight_group|weight_tile|run_stage|run_span|run_group)\(", src)
 
 
 @pytest.mark.parametrize("n, expected", [(1, 128), (255, 128), (256, 128), (8000, 128), (65536, 256),
