@@ -13,8 +13,10 @@ in order (a failed check raises, and the script exits nonzero):
    of the float32 weight kernel's inner loop, which must take at most the
    two MUFU ops a pair the function needs, of the float32 near-field (B4)
    and far-cell (B5) loops, which must take one MUFU.LG2 and one MUFU.EX2 a
-   pair and no FFMA, and of the float32 kNN walk's hot loop, which must
-   hold no FFMA and at most one shared load per two pairs;
+   pair and no FFMA, of the float32 quadtree loop (B6), which must take one
+   MUFU.LG2, one MUFU.EX2 and one MUFU.RCP a pair and no FFMA, and of the
+   float32 kNN walk's hot loop, which must hold no FFMA and at most one
+   shared load per two pairs;
 2. each kernel against its plain PyTorch version on the card, float32 and
    float64, at the shapes the main path gives it (m = 2^20): B1 and B3
    alpha bit for bit, with a control that a walk losing one split part
@@ -52,10 +54,14 @@ in order (a failed check raises, and the script exits nonzero):
 12. B4 and B5 timed with CUDA events at the serving batch's shapes, with
     their operations, special-function-unit and issue bounds;
 13. the quadtree kernel B6 (``phase2="quadtree"``) against its plain version
-    on the card, every level, float32 and float64, at the serving batch's
-    shapes, with controls that a table losing its first node and a sweep
-    without the dipole term fail the check, and B4 on the quadtree plan's
-    near field as in phase 7;
+    on the card, every level, at the serving batch's shapes: first the
+    float32 per-term errors against their own budgets, then float32 within
+    each query's tolerance (``phase2_far_nodes_tolerance``: the weights and
+    the gradient's reciprocal come from the special-function units) and
+    float64 within 8 ulps; controls, per level, that a table losing its
+    first node and a sweep without the dipole term fail the check by 10x at
+    the level where each shows most; and B4 on the quadtree plan's near
+    field as in phase 7;
 14. the golden quadtree pin (``qtree_*`` of the fixture) on the card;
 15. the quadtree plan built on the card against the one built on the CPU;
 16. the quadtree serving run of ``aidw-pod-1m``: the same four batches, each
@@ -68,7 +74,9 @@ in order (a failed check raises, and the script exits nonzero):
     outside the data's box: its rings and time, r_obs against a float64
     brute force;
 19. B6 timed with CUDA events per level at the serving batch's shapes,
-    beside the quadtree, far-field and exact batch times of this run;
+    float32 and float64, with the pairs it needs and walks and its
+    special-function-unit, operations and issue bounds, beside the
+    quadtree, far-field and exact batch times of this run;
 20. (a) the paper's dense variants' kernels against their plain versions on
     the card, float32 and float64, m = 2^20, 2,048 queries: B7 and B8
     (``naive.cu``, SoA and AoaS), B9 and B10 (``knn.cu`` and ``weight.cu``
@@ -118,7 +126,12 @@ in order (a failed check raises, and the script exits nonzero):
     a block at 8,192, 65,536 (two batches) and 2^20 queries, beside the
     wrapper's choice (``kernels/aidw_grid.py: row_launch``), which must be
     the fastest or within 5%, all giving the same bits, with the spread of
-    the near rows' lengths.
+    the near rows' lengths;
+33. B6 (float32), its level launches together, timed with CUDA events at S
+    = 1, 2 and 4 threads a query and 64, 128 and 256 threads a block at
+    8,192, 65,536 and 2^20 queries, beside the wrapper's choice
+    (``kernels/aidw_grid.py: far_node_launch``), which must be the fastest
+    or within 5%, all giving the same bits.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Without a CUDA card,
@@ -168,6 +181,14 @@ PEAK_SFU = 132 * 16 * 1.98e9
 MUFU_PER_PAIR = 2
 # instruction issue: 4 warp schedulers x 32 threads per SM per clock
 PEAK_ISSUE = 132 * 128 * 1.98e9
+# a float32 pair of the quadtree sweep (B6) on the special-function units:
+# pow_weight's log2 and exp2, and the reciprocal of the dipole's gradient
+FAR_NODE_MUFU = {"MUFU.EX2": 1.0, "MUFU.LG2": 1.0, "MUFU.RCP": 1.0}
+# the same pair's operations on the FP32 pipes, counted from far_node.cu's
+# loop: d^2 5 (2 sub, 2 mul, add), the clamp, the exponent's mul, grad 2
+# muls, the dipole 4 (2 muls, add, mul), the count's mul and add, z_sum's
+# mul and 2 adds
+FAR_NODE_OPS = 18
 
 # the binned prefilter's error envelope against the reference, from
 # tests/kernels/test_aidw_variants.py: mean and max relative z error, and
@@ -356,12 +377,14 @@ def kernel_sass(lib, func, **kw):
     return _SASS[key]
 
 
-def far_sass(name):
-    """The per-pair loop of the float32 near-field (B4) or far-cell (B5)
-    kernel (one MUFU.EX2 a pair; B4's first-minimum update, taken only when
-    a group's minimum beats the running one, left out)."""
+def far_sass(name, splits=1):
+    """The per-pair loop of the float32 near-field (B4), far-cell (B5) or
+    quadtree (B6, at S = ``splits`` threads a query) kernel (one MUFU.EX2 a
+    pair; B4's first-minimum update, taken only when a group's minimum beats
+    the running one, and B6's tile fold, taken once a tile, left out)."""
     lib, func = {"near_weight": ("near", "_ZN4aidw18near_weight_kernelIfEE"),
-                 "far_cell": ("far", "_ZN4aidw15far_cell_kernelIfEE")}[name]
+                 "far_cell": ("far", "_ZN4aidw15far_cell_kernelIfEE"),
+                 "far_node": ("far_node", f"_ZN4aidw15far_node_kernelIfLi{splits}EE")}[name]
     return kernel_sass(lib, func, cold=True)
 
 
@@ -468,6 +491,17 @@ def main():
               f"per pair {loop[1]}")
         check(mufu(loop[1]) == {"MUFU.EX2": 1.0, "MUFU.LG2": 1.0} and ffma == 0,
               f"the {kname} loop takes one MUFU.LG2 and one MUFU.EX2 a pair and no FFMA")
+    # the quadtree sweep (B6): pow_weight's MUFU.LG2 and MUFU.EX2 and the
+    # dipole's MUFU.RCP a pair, no FFMA, one LDS.128 and one LDS.64
+    for splits in (1, 4):
+        loop = far_sass("far_node", splits)
+        check(loop is not None, f"the SASS of far_node_kernel<float, {splits}> has a per-pair loop")
+        ffma = sum(c for op, c in loop[1].items() if op.startswith("FFMA"))
+        lds = {op: c for op, c in loop[1].items() if op.startswith("LDS")}
+        print(f"  far_node_kernel<float, {splits}> SASS per-pair loop: {loop[0]} instructions per pair, MUFU per "
+              f"pair {mufu(loop[1])}, FFMA {ffma}, LDS {lds}; per pair {loop[1]}")
+        check(mufu(loop[1]) == FAR_NODE_MUFU and ffma == 0,
+              f"the far_node loop (S = {splits}) takes one MUFU.LG2, MUFU.EX2 and MUFU.RCP a pair and no FFMA")
 
     wl = AIDW_WORKLOADS["aidw-pod-1m"]
     check(wl.m == M_FULL and wl.n == M_FULL and wl.k == 10, "aidw-pod-1m is m = n = 2^20, k = 10")
@@ -809,6 +843,7 @@ def main():
     weight_shape_phase(params=params, data=data, queries=queries, time_ms=time_ms)
     knn_shape_phase(params=params, data=data, queries=queries, time_ms=time_ms)
     row_shape_phase(params=params, data=data, queries=queries, time_ms=time_ms)
+    far_node_shape_phase(params=params, data=data, queries=queries, time_ms=time_ms)
     print(f"  total {time.time() - t_start:.1f} s")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1272,11 +1307,16 @@ def quadtree_phases(*, dev, params, golden, data, queries, sync, maxerr, time_ms
     from repro_torch.engine.plan import QT_ARRAYS
     from repro_torch.errors import UnprovableRtolWarning
     from repro_torch.kernels import _build
+    from repro_torch.core.aidw import tiny_for
+    from repro_torch.kernels._common import EPS32, SUM_RUN, sfu_weight_eps
     from repro_torch.kernels.aidw_grid import (
         block_rectangles,
+        far_node_launch,
+        far_node_terms,
         phase1_alpha_from_candidates,
         phase2_far_nodes,
         phase2_far_nodes_plain,
+        phase2_far_nodes_tolerance,
         phase2_near_tolerance,
         phase2_near_weights,
         phase2_near_weights_plain,
@@ -1284,6 +1324,7 @@ def quadtree_phases(*, dev, params, golden, data, queries, sync, maxerr, time_ms
 
     f32, f64 = torch.float32, torch.float64
     hit_eps = params.exact_hit_eps
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def qt_plan(dx, dy, dz, device=None):
         with warnings.catch_warnings(record=True) as rec:
@@ -1307,53 +1348,127 @@ def quadtree_phases(*, dev, params, golden, data, queries, sync, maxerr, time_ms
             levels.append((tbl, nt, n_closed, p.far[lv][:6], tile))
         return lay, alpha * 0.5, home, levels
 
-    def b6(lay, ah, levels, block_q, rows=None, plain=False, drop_first=False, no_dipole=False):
-        # B6 on every level (kernel or plain), all query blocks or the blocks
-        # of `rows`; the controls drop each row's first closed node or the
-        # dipole moments
-        fn = phase2_far_nodes_plain if plain else phase2_far_nodes
+    def level_args(lay, ah, levels, rows=None):
+        # per level B6's arguments, for all query blocks or the blocks of
+        # `rows` = (query rows, blocks)
         qx, qy = lay.qx_v, lay.qy_v
         if rows is not None:
             qx, qy, ah = qx[rows[0]], qy[rows[0]], ah[rows[0]]
-        out = []
-        for tbl, nt, _, nodes, tile in levels:
+        for tbl, nt, n_closed, nodes, tile in levels:
             if rows is not None:
-                tbl, nt = tbl[rows[1]], nt[rows[1]]
+                tbl, nt, n_closed = tbl[rows[1]], nt[rows[1]], n_closed[rows[1]]
+            yield (qx, qy, ah, tbl.contiguous(), nt.contiguous(), nodes), n_closed.contiguous(), tile
+
+    def b6(lay, ah, levels, block_q, rows=None, plain=False, drop_first=False, no_dipole=False):
+        # B6 on every level (the kernel, cut at the closed nodes as the
+        # engine calls it, or the plain version); the controls drop each
+        # row's first closed node or the dipole moments
+        out = []
+        for (qx, qy, a, tbl, nt, nodes), n_closed, tile in level_args(lay, ah, levels, rows):
             if drop_first:
                 tbl = tbl.clone()
                 tbl[:, 0] = nodes[0].shape[0] - 1
             if no_dipole:
                 nodes = (*nodes[:4], torch.zeros_like(nodes[4]), torch.zeros_like(nodes[5]))
-            out.append(fn(qx, qy, ah, tbl.contiguous(), nt.contiguous(), nodes, block_q=block_q, tile_d=tile))
+            kw = dict(block_q=block_q, tile_d=tile)
+            out.append(phase2_far_nodes_plain(qx, qy, a, tbl, nt, nodes, **kw) if plain
+                       else phase2_far_nodes(qx, qy, a, tbl, nt, nodes, n_closed=n_closed, **kw))
         return out
 
-    def level_ulps(a, b, dtype):
-        return max(max(ulps(x[0], y[0], dtype), ulps(x[1], y[1], dtype)) for x, y in zip(a, b))
+    def b6_tol(lay, ah, levels, block_q, rows=None):
+        # the float32 kernel's per-query tolerances (tol_w, tol_wz), every level
+        return [phase2_far_nodes_tolerance(*args, block_q=block_q, tile_d=tile)
+                for args, _, tile in level_args(lay, ah, levels, rows)]
+
+    def b6_term_ulps(p, lay, ah, levels, blocks, per_row=32):
+        # the float32 kernel's per-term errors against the plain version's
+        # terms, pair by pair: each pair (a query of a sampled block, one of
+        # the first `per_row` closed nodes of its row) alone in a table row
+        # of one run (the other 31 slots the sentinel, which adds +0), so the
+        # kernel's sum w is that pair's w count and its sum w z its w z_sum
+        # + dip; each held to its own-term budget in phase2_far_nodes_tolerance
+        bq = p.block_q
+        out = []
+        for lv, (tbl, _, n_closed, nodes, _) in enumerate(levels):
+            ids = tbl[blocks, :per_row]
+            keep = torch.arange(ids.shape[1], device=dev)[None, :] < n_closed[blocks, None]
+            node_ids, blk = ids[keep], blocks[:, None].expand_as(ids)[keep]
+            if node_ids.numel() == 0:
+                continue
+            one = torch.full((node_ids.numel(), SUM_RUN), nodes[0].shape[0] - 1, dtype=torch.int32, device=dev)
+            one[:, 0] = node_ids
+            qsel = (blk[:, None] * bq + torch.arange(bq, device=dev)).reshape(-1)
+            q = (lay.qx_v[qsel].contiguous(), lay.qy_v[qsel].contiguous(), ah[qsel].contiguous())
+            ones = torch.ones(node_ids.numel(), dtype=torch.int32, device=dev)
+            kw = dict(block_q=bq, tile_d=SUM_RUN)
+            got = phase2_far_nodes(*q, one, ones, nodes, n_closed=ones, **kw)
+            want = phase2_far_nodes_plain(*q, one, ones, nodes, **kw)
+            d2, _, _, wz, dip = (t.reshape(-1) for t in far_node_terms(
+                q[0].reshape(-1, bq, 1), q[1].reshape(-1, bq, 1), q[2].reshape(-1, bq, 1), one[:, None, :1].long(),
+                nodes))
+            e_w, wz, dip = sfu_weight_eps(d2, q[2]), wz.double().abs(), dip.double().abs()
+            live = (want[0] > 0) & torch.isfinite(want[0]) & (want[1] != 0)
+            budget = (e_w + EPS32, (wz * (e_w + 2 * EPS32) + dip * (e_w + 5 * EPS32)) / want[1].double().abs())
+            t = (q[2].double() * torch.log(torch.clamp(d2, min=tiny_for(f32)).double())).abs()[live]
+            row = [lv, int(live.sum()), float((dip / want[1].double().abs())[live].max())]
+            for k, pl, bud in zip(got, want, budget):
+                u = ((k.double() - pl.double()).abs() / pl.double().abs())[live] / EPS32
+                r = u / (bud[live] / EPS32)
+                row += [float(u.mean()), float(u.max()), int((r > 1).sum()), float(r.max())]
+            out.append(row + [float(t.max())])
+        for lv, n, dip_rel, *rest, t_max in out:
+            print(f"  B6 float32 per-term error, level {lv}, {n} pairs (|t| up to {t_max:.1f}, largest dipole "
+                  f"{dip_rel:.3e} of its term): w count {rest[0]:.3f} ulps mean, {rest[1]:.3f} max, {rest[2]} past "
+                  f"its budget (max {rest[3]:.3f} of it); w z_sum + dip {rest[4]:.3f} mean, {rest[5]:.3f} max, "
+                  f"{rest[6]} past its budget (max {rest[7]:.3f} of it)")
+        return max(max(row[6], row[10]) for row in out)
 
     # ------------------------------------------------ 13. (a) B6 vs plain
     print("== 13. (a) quadtree kernel B6 (far_node.cu) vs its plain version, every level (aidw-pod-1m quadtree "
           "plan, serving batch n=65536)", flush=True)
-    qt32, b6_err = None, 0.0
+    qt32, qt64, b6_err = None, None, 0.0
     for dtype in (f32, f64):
         name = str(dtype).split(".")[1]
         p, _ = qt_plan(*data(dtype))
         qx, qy = queries(*SERVING[0], dtype)
         lay, ah, home, levels = qt_inputs(p, qx, qy)
+        if dtype == f32:
+            nb = levels[0][0].shape[0]
+            sampled = torch.as_tensor(np.sort(np.random.default_rng(13).choice(nb, 16, replace=False)), device=dev)
+            worst = b6_term_ulps(p, lay, ah, levels, sampled)
+            check(worst <= 1.0, f"every B6 float32 term within its own budget ({worst})")
         k_out, p_out = b6(lay, ah, levels, p.block_q), b6(lay, ah, levels, p.block_q, plain=True)
+        # float32: each query's tolerance from its terms (the weights and the
+        # gradient's reciprocal come from the special-function units);
+        # float64: SUM_ULPS, bitwise in practice
+        tols = b6_tol(lay, ah, levels, p.block_q) if dtype == f32 else [None] * len(levels)
         sync()
         per_level = []
-        for lv, (k, pl) in enumerate(zip(k_out, p_out)):
-            _, e, same, _ = hold(f"B6 {name} level {lv}", k, pl, dtype)
-            per_level.append((e, same, float(levels[lv][2].float().mean()), int(levels[lv][2].max()),
+        for lv, (k, pl, tol) in enumerate(zip(k_out, p_out, tols)):
+            r, e, same, _ = hold(f"B6 {name} level {lv}", k, pl, dtype, tol)
+            per_level.append((r, e, same, float(levels[lv][2].float().mean()), int(levels[lv][2].max()),
                               p.qt_levels[lv][3]))
-        e_drop = level_ulps(b6(lay, ah, levels, p.block_q, plain=True, drop_first=True), p_out, dtype)
-        e_dip = level_ulps(b6(lay, ah, levels, p.block_q, plain=True, no_dipole=True), p_out, dtype)
-        for lv, (e, same, mean_c, max_c, k_pad) in enumerate(per_level):
-            print(f"  B6 {name} level {lv}: sum_w, sum_wz within {e:.2f} ulps (tolerance {SUM_ULPS}), bitwise equal: "
-                  f"{same}; closed nodes per block mean {mean_c}, max {max_c} of k_pad {k_pad}")
-        print(f"  B6 {name} controls: the plain sweep with each row's first closed node dropped is off by "
-              f"{e_drop:.3e} ulps, without the dipole term by {e_dip:.3e} ulps", flush=True)
-        check(min(e_drop, e_dip) > SUM_ULPS, f"the B6 tolerance catches a lost node and a lost dipole ({name})")
+        # controls, each a plain sweep of the same inputs less a little, in
+        # tolerances (SUM_ULPS in float64) per level
+        c_drop = [max(off_by(k[i], pl[i], dtype, None if tol is None else tol[i]) for i in (0, 1)) for k, pl, tol in
+                  zip(b6(lay, ah, levels, p.block_q, plain=True, drop_first=True), p_out, tols)]
+        c_dip = [off_by(k[1], pl[1], dtype, None if tol is None else tol[1]) for k, pl, tol in
+                 zip(b6(lay, ah, levels, p.block_q, plain=True, no_dipole=True), p_out, tols)]
+        rule = "the per-query tolerance" if dtype == f32 else f"{SUM_ULPS} ulps"
+        for lv, (r, e, same, mean_c, max_c, k_pad) in enumerate(per_level):
+            print(f"  B6 {name} level {lv}: sum_w, sum_wz within {r:.4f} of {rule} ({e:.2f} ulps), bitwise equal: "
+                  f"{same}; closed nodes per block mean {mean_c}, max {max_c} of k_pad {k_pad}; controls (limit 1): "
+                  f"first closed node dropped {c_drop[lv]:.3e}, dipole dropped {c_dip[lv]:.3e}")
+        if dtype == f32:
+            rel = [float(max((t / s.double().abs()).nan_to_num(nan=0.0, posinf=0.0).median() for t, s in
+                             zip(tol, pl))) / EPS32 for tol, pl in zip(tols, p_out)]
+            print(f"  float32 tolerances, median over queries in ulps of the sum, per level: {rel}")
+        print(f"  B6 {name} controls, largest over the levels: first closed node dropped {max(c_drop):.3e}, "
+              f"dipole dropped {max(c_dip):.3e} (at level {int(np.argmax(c_dip))}); both must reach 10", flush=True)
+        check(max(c_drop) >= 10 and max(c_dip) >= 10,
+              f"the B6 check fails a lost node and a lost dipole by 10x or more ({name})")
+        if dtype == f64:
+            qt64 = (p, lay, ah, levels)
         # B4 on the quadtree plan's near field: float32 within the per-query
         # tolerance of its terms, float64 within SUM_ULPS
         near = _near_field(p, lay.cx_v, lay.cy_v)
@@ -1375,7 +1490,7 @@ def quadtree_phases(*, dev, params, golden, data, queries, sync, maxerr, time_ms
 
             b6_err = maxerr(z_all(k_out), z_all(p_out))
             qt32 = (p, lay, ah, levels)
-        del k_out, p_out
+        del k_out, p_out, tols
 
     # ------------------------------------------------ 14. (b) golden pin
     print("== 14. (b) golden quadtree pin (qtree) on the card", flush=True)
@@ -1502,10 +1617,11 @@ def quadtree_phases(*, dev, params, golden, data, queries, sync, maxerr, time_ms
         rows = (blocks[:, None] * plan_qt.block_q + torch.arange(plan_qt.block_q, device=dev)).reshape(-1)
         k_out = b6(lay, ah, levels, plan_qt.block_q)
         p_out = b6(lay, ah, levels, plan_qt.block_q, rows=(rows, blocks), plain=True)
-        e_b, same_b = 0.0, True
-        for lv, (k, pl) in enumerate(zip(k_out, p_out)):
-            _, e, same, _ = hold(f"B6 batch n={n} level {lv}", tuple(o[rows] for o in k), pl, f32)
-            e_b, same_b = max(e_b, e), same_b and same
+        t_out = b6_tol(lay, ah, levels, plan_qt.block_q, rows=(rows, blocks))
+        r_b, e_b, same_b = 0.0, 0.0, True
+        for lv, (k, pl, tol) in enumerate(zip(k_out, p_out, t_out)):
+            r, e, same, _ = hold(f"B6 batch n={n} level {lv}", tuple(o[rows] for o in k), pl, f32, tol)
+            r_b, e_b, same_b = max(r_b, r), max(e_b, e), same_b and same
         # B4 at this batch's shapes on the same sampled blocks
         near = _near_field(plan_qt, lay.cx_v, lay.cy_v)
         cand = (near.cand_x, near.cand_y, near.cand_z, near.num_tiles)
@@ -1515,9 +1631,10 @@ def quadtree_phases(*, dev, params, golden, data, queries, sync, maxerr, time_ms
         r_n, e_n, same_n, _ = hold(f"B4 quadtree batch n={n}", tuple(o[rows] for o in n_k),
                                    phase2_near_weights_plain(*near_s, **nk), f32, phase2_near_tolerance(*near_s, **nk))
         print(f"  batch n={n} seed={seed}: B6 on {blocks.numel()} of its {nb} query blocks, every level, against its "
-              f"plain version: within {e_b:.2f} ulps (tolerance {SUM_ULPS}), bitwise equal: {same_b}; B4 on them "
-              f"within {r_n:.4f} of its tolerance ({e_n:.2f} ulps), bitwise equal: {same_n}", flush=True)
-        del lay, ah, levels, k_out, p_out
+              f"plain version: within {r_b:.4f} of its per-query tolerance ({e_b:.2f} ulps), bitwise equal: "
+              f"{same_b}; B4 on them within {r_n:.4f} of its tolerance ({e_n:.2f} ulps), bitwise equal: {same_n}",
+              flush=True)
+        del lay, ah, levels, k_out, p_out, t_out
     qx, qy = batches[0]
     z2, a2, _ = execute_with_stats(plan_qt, qx, qy)
     check(torch.equal(z2, qt_results[0][0]) and torch.equal(a2, qt_results[0][1]), "quadtree run-to-run bits")
@@ -1577,39 +1694,56 @@ def quadtree_phases(*, dev, params, golden, data, queries, sync, maxerr, time_ms
           f"overflowed queries walks {rings} rings in {time.time() - t0} s host clock", flush=True)
 
     # ------------------------------------------------ 19. (g) B6 timings
-    print("== 19. (g) B6 timings (CUDA events, serving batch n=65536, m=2^20, float32)", flush=True)
+    print("== 19. (g) B6 timings (CUDA events, serving batch n=65536, m=2^20, float32 and float64)", flush=True)
     p, lay, ah, levels = qt32
     n_v = lay.qx_v.shape[0]
-    # What these inputs need: a term for each closed node of each block, 20
-    # operations per pair counted from far_node.cu's loop (d^2 5, max, log,
-    # mul, exp, 2*ah*w, the division, the dipole's 2 muls, add and mul, the
-    # count's mul and add, z_sum's mul, the dipole's add and the sum's add;
-    # exp, log and the division one operation each).  Bytes: queries and
-    # alpha read once, the closed ids and the level's node arrays read once,
-    # the two sums written once.
-    total_ms = total_plain = total_bound = 0.0
-    total_pairs, bound_kinds = 0, set()
-    for lv, (tbl, nt, n_closed, nodes, tile) in enumerate(levels):
-        args = (lay.qx_v, lay.qy_v, ah, tbl, nt, nodes)
-        ms = time_ms(lambda: phase2_far_nodes(*args, block_q=p.block_q, tile_d=tile), 10)
-        plain_ms = time_ms(lambda: phase2_far_nodes_plain(*args, block_q=p.block_q, tile_d=tile), 1, warmup=0)
-        n_closed_tot = int(n_closed.long().sum())
+    threads, splits = far_node_launch(n_v, sms, block_q=p.block_q)
+    sass = far_sass("far_node", splits)
+    # What these inputs need: a term for each closed node of each block,
+    # FAR_NODE_OPS operations on the FP32 pipes and the three FAR_NODE_MUFU
+    # ops on the special-function units a pair.  Bytes: queries and alpha
+    # read once, the closed ids and the level's node arrays read once, the
+    # two sums written once.  The launch walks each row up to its closed
+    # nodes rounded up to a run; the first design walked whole tiles.
+    total = dict(ms=0.0, plain=0.0, f64=0.0, bound=0.0, pairs=0, walked=0, tiles=0)
+    bound_kinds = set()
+    lv64 = list(level_args(*qt64[1:]))
+    for lv, ((qx, qy, a, tbl, nt, nodes), n_closed, tile) in enumerate(level_args(lay, ah, levels)):
+        kw = dict(block_q=p.block_q, tile_d=tile)
+        ms = time_ms(lambda: phase2_far_nodes(qx, qy, a, tbl, nt, nodes, n_closed=n_closed, **kw), 10)
+        plain_ms = time_ms(lambda: phase2_far_nodes_plain(qx, qy, a, tbl, nt, nodes, **kw), 1, warmup=0)
+        args64, nc64, tile64 = lv64[lv]
+        ms64 = time_ms(lambda: phase2_far_nodes(*args64, n_closed=nc64, block_q=qt64[0].block_q, tile_d=tile64), 3)
+        closed = torch.clamp(n_closed.long(), 0, tbl.shape[1])
+        n_closed_tot = int(closed.sum())
         pairs = p.block_q * n_closed_tot
+        walked = p.block_q * int(torch.minimum(nt.long() * tile, (closed + SUM_RUN - 1) // SUM_RUN * SUM_RUN).sum())
+        tiles = p.block_q * int(nt.long().sum()) * tile
         n_bytes = 3 * 4 * n_v + 4 * n_closed_tot + 6 * 4 * nodes[0].shape[0] + 2 * 4 * n_v
-        bound_ms, bound_by = bound(20 * pairs, n_bytes, 1)
-        total_ms, total_plain, total_bound, total_pairs = (total_ms + ms, total_plain + plain_ms,
-                                                           total_bound + bound_ms, total_pairs + pairs)
+        bound_ms, bound_by = bound(pairs, n_bytes, FAR_NODE_OPS, sfu_ops=len(FAR_NODE_MUFU) * pairs)
+        for key, v in (("ms", ms), ("plain", plain_ms), ("f64", ms64), ("bound", bound_ms), ("pairs", pairs),
+                       ("walked", walked), ("tiles", tiles)):
+            total[key] += v
         bound_kinds.add(bound_by)
-        print(f"  far_node level {lv}: {ms} ms (plain {plain_ms} ms, bound {bound_ms} ms by {bound_by}, {pairs} pairs, "
-              f"k_pad {p.qt_levels[lv][3]}, tile {tile})", flush=True)
-    print(f"  far_node, {len(levels)} launches per batch: {total_ms} ms (plain {total_plain} ms, bound {total_bound} ms, "
-          f"{total_pairs} pairs = block_q x sum of closed nodes)")
+        print(f"  far_node level {lv}: {ms} ms (f64 {ms64} ms; plain {plain_ms} ms), bound {bound_ms} ms by "
+              f"{bound_by}; {pairs} pairs needed, {walked} walked ({tiles} in whole tiles); k_pad "
+              f"{p.qt_levels[lv][3]}, tile {tile}", flush=True)
+    pairs, walked = total["pairs"], total["walked"]
+    f64_ops = 1e3 * pairs * 20 / PEAK_OPS["float64"]
+    print(f"  far_node, {len(levels)} launches per batch ({threads} threads a block, S = {splits}): {total['ms']} ms "
+          f"float32, {total['f64']} ms float64 (plain {total['plain']} ms), bound {total['bound']} ms; "
+          f"{pairs} pairs needed (block_q x sum of closed nodes), {walked} walked, {total['tiles']} in whole tiles")
+    print(f"  far_node beside its bounds (float32): MUFU {1e3 * pairs * len(FAR_NODE_MUFU) / PEAK_SFU} ms "
+          f"({len(FAR_NODE_MUFU)} a pair at 16/SM/clock); operations {1e3 * pairs * FAR_NODE_OPS / PEAK_OPS['float32']} "
+          f"ms ({FAR_NODE_OPS} a pair); instruction issue of the walked pairs {1e3 * walked * sass[0] / PEAK_ISSUE} "
+          f"ms ({sass[0]} SASS instructions a pair, S = {splits}); float64 operations {f64_ops} ms (20 a pair, exp, "
+          "log and the division one each)")
     print(f"  batch wall times (host clock, this call): quadtree {qt_walls}, far-field {ff_walls}, exact "
           f"{[r[3] for r in results]} s")
     return [dict(name="far_node", route="cuda", **KERNELS["far_node"], launches=qt_launches["far_node"],
-                 max_abs_err=b6_err, ms=total_ms, plain_ms=total_plain, bound_ms=total_bound,
-                 bound_by="operations" if bound_kinds == {"operations"} else "bytes",
-                 library_ms=None)]
+                 max_abs_err=b6_err, ms=total["ms"], plain_ms=total["plain"], bound_ms=total["bound"],
+                 bound_by="operations" if bound_kinds == {"operations"} else "bytes", library_ms=None,
+                 f64_ms=total["f64"], threads=threads, splits=splits)]
 
 
 def dense_phases(*, dev, params, golden, eps, data, queries, sync, maxerr, time_ms, bound, z_tol, b2_rtol,
@@ -2331,6 +2465,71 @@ def row_shape_phase(*, params, data, queries, time_ms):
                   f"row_launch's pick for {name} at n={n} seed={seed} is within 5% of the fastest")
         del lay, near, cand, refs
     print(f"  phase 32: {time.time() - t_phase:.1f} s", flush=True)
+
+
+def far_node_shape_phase(*, params, data, queries, time_ms):
+    """Phase 33: B6 (float32, the ``aidw-pod-1m`` quadtree plan), its level
+    launches together, timed with CUDA events at S = 1, 2 and 4 threads a
+    query and 64, 128 and 256 threads a block, at 8,192, 65,536 and 2^20
+    queries, beside the wrapper's choice (``kernels/aidw_grid.py:
+    far_node_launch``), which must be the fastest or within 5% of it; every
+    setting gives the wrapper's bits."""
+    import torch
+
+    from repro_torch.core.aidw import tiny_for
+    from repro_torch.engine import build_plan
+    from repro_torch.engine.execute import _grid_layout, _quadtree_walk
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.aidw_grid import block_rectangles, far_node_launch, phase2_far_nodes
+
+    print("== 33. B6 splits and block sizes (CUDA events, float32, aidw-pod-1m quadtree plan, m = 2^20)", flush=True)
+    t_phase = time.time()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        p = build_plan(*data(torch.float32), params=params, area=1.0, impl="grid", phase2="quadtree")
+    fn = _build.entry("aidw_far_node_f32")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    stream = torch.cuda.current_stream().cuda_stream
+    tiny = tiny_for(torch.float32)
+    for n, seed in ((8192, 33), SERVING[0], SERVING[3]):
+        qx, qy = queries(n, seed)
+        lay = _grid_layout(p, qx, qy)
+        home = block_rectangles(p.grid, lay.cx_v, lay.cy_v, torch.zeros_like(lay.cx_v), p.block_q)
+        levels = []
+        for lv, (tbl, n_closed, _, _) in enumerate(_quadtree_walk(p, *home)):
+            k_pad, tile = p.qt_levels[lv][3:]
+            nt = ((n_closed.clamp(max=k_pad) + tile - 1) // tile).to(torch.int32)
+            levels.append((tbl, nt, n_closed, p.far[lv][:6], k_pad, tile))
+        n_v = lay.qx_v.shape[0]
+        ah = torch.full_like(lay.qx_v, 1.0)  # the sweep's cost does not depend on alpha
+        refs = [phase2_far_nodes(lay.qx_v, lay.qy_v, ah, tbl, nt, nodes, block_q=p.block_q, tile_d=tile, n_closed=nc)
+                for tbl, nt, nc, nodes, _, tile in levels]
+        outs = [(torch.empty_like(ah), torch.empty_like(ah)) for _ in levels]
+        rule = far_node_launch(n_v, sms, block_q=p.block_q)
+        got = {}
+        for threads in (64, 128, 256):
+            for splits in (1, 2, 4):
+                if splits > 1 and threads // splits > 128:
+                    continue
+
+                def run():
+                    for (tbl, nt, nc, nodes, k_pad, tile), (sw, swz) in zip(levels, outs):
+                        _build.check(fn(lay.qx_v.data_ptr(), lay.qy_v.data_ptr(), ah.data_ptr(), tbl.data_ptr(),
+                                        nt.data_ptr(), nc.data_ptr(), *(a.data_ptr() for a in nodes), n_v, p.block_q,
+                                        k_pad, tile, nodes[0].shape[0] - 1, threads, splits, tiny, sw.data_ptr(),
+                                        swz.data_ptr(), stream), "far_node launch")
+
+                got[threads, splits] = time_ms(run, 3)
+                check(all(torch.equal(o[0], r[0]) and torch.equal(o[1], r[1]) for o, r in zip(outs, refs)),
+                      f"B6 with {threads} threads and S = {splits} gives the wrapper's bits (n={n})")
+        best = min(got, key=got.get)
+        print(f"  n={n} seed={seed} ({n_v} queries after the seam split, {len(levels)} levels): "
+              + ", ".join(f"{t} threads S={sp} {ms} ms" for (t, sp), ms in got.items())
+              + f"; fastest {best}; far_node_launch picks {rule} ({sms} SMs), {got[rule] / got[best]:.4f}x the "
+              "fastest; all bitwise equal", flush=True)
+        check(got[rule] <= 1.05 * got[best], f"far_node_launch's pick at n={n} is within 5% of the fastest setting")
+        del lay, levels, refs, outs
+    print(f"  phase 33: {time.time() - t_phase:.1f} s", flush=True)
 
 
 if __name__ == "__main__":

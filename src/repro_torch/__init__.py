@@ -9,3 +9,7 @@ Entry points: :func:`repro_torch.engine.build_plan`,
 and :func:`repro_torch.kernels.aidw`.  Plans live on ``"cuda"`` unless the
 caller passes ``device="cpu"``, where every kernel runs its plain version.
 """
+
+from repro_torch._cpu_warmup import warm_cpu_transcendentals
+
+warm_cpu_transcendentals()

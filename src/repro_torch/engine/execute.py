@@ -281,7 +281,7 @@ def _phase2_quadtree(plan: InterpolationPlan, qx_v, qy_v, alpha_v, cx_v, cy_v):
         k_pad, tile = plan.qt_levels[lv][3:]
         nt = ((n_closed.clamp(max=k_pad) + tile - 1) // tile).to(torch.int32)
         sw_f, swz_f = phase2_far_nodes(qx_v, qy_v, ah, tbl, nt, plan.far[lv][:6], block_q=plan.block_q,
-                                       tile_d=tile)
+                                       tile_d=tile, n_closed=n_closed)
         sw = sw + sw_f
         swz = swz + swz_f
         overflow = overflow | (n_closed > k_pad)

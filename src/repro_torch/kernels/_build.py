@@ -56,7 +56,7 @@ ENTRY_POINTS = {
     **{f"aidw_naive_aoas_{t}": ("naive", [_P] * 3 + [_I] * 5 + [_D] * 11 + [_P] * 3) for t in ("f32", "f64")},
     **{f"aidw_near_weight_{t}": ("near", [_P] * 7 + [_I] * 5 + [_D] + [_P] * 5) for t in ("f32", "f64")},
     **{f"aidw_far_cell_{t}": ("far", [_P] * 10 + [_I] * 5 + [_D] + [_P] * 3) for t in ("f32", "f64")},
-    **{f"aidw_far_node_{t}": ("far_node", [_P] * 11 + [_I] * 6 + [_D] + [_P] * 3) for t in ("f32", "f64")},
+    **{f"aidw_far_node_{t}": ("far_node", [_P] * 12 + [_I] * 7 + [_D] + [_P] * 3) for t in ("f32", "f64")},
 }
 
 # kernel name (the TPU kernel it replaces) -> launches since the last reset

@@ -25,13 +25,15 @@ of the exact-path and far-field parts of ``repro.kernels.aidw_grid``.
 * :func:`phase2_far_nodes` - one level of the quadtree far field,
   ``csrc/far_node.cu`` (the port of ``_far_node_kernel``): one aggregate and
   dipole term per closed node of each block's node table.
+  :func:`far_node_launch` picks its threads a CUDA block and a query.
 
 Each kernel wrapper runs its plain version (beside it, tile by tile as the
 Pallas kernel sums) when given CPU tensors, and launches its kernel or
-raises when given CUDA tensors.  In float32 the kernels of B4 and B5 take
-their weights from the special-function units; :func:`phase2_near_tolerance`
-and :func:`phase2_far_tolerance` give the per-query tolerance of their sums
-against the plain versions.
+raises when given CUDA tensors.  In float32 the kernels of B4, B5 and B6
+take their weights from the special-function units;
+:func:`phase2_near_tolerance`, :func:`phase2_far_tolerance` and
+:func:`phase2_far_nodes_tolerance` give the per-query tolerance of their
+sums against the plain versions.
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ from repro_torch.core.aidw import AIDWParams, tiny_for
 from repro_torch.core.grid import UniformGrid
 from repro_torch.kernels import _build
 from repro_torch.kernels._common import (
+    EPS32,
     SUM_RUN,
     pow_weight,
     run_sum,
@@ -58,7 +61,10 @@ from repro_torch.kernels.aidw_tiled import _check_float, _on_card, _sm_count, _s
 # row_launch halves a CUDA block's threads while the batch has fewer CUDA
 # blocks a SM than this, down to 64 (near.cu) or 128 (far.cu) threads
 _ROW_BLOCKS_PER_SM = 4
-_FAR_NODE_THREADS = 256
+# far_node_launch doubles S from 2 to 4 while the batch has fewer threads a
+# SM than this
+_FAR_NODE_THREADS_PER_SM = 1024
+_FAR_NODE_THREADS = 128  # threads a CUDA block of far_node.cu
 
 
 def block_rectangles(grid: UniformGrid, cx, cy, r_safe, block_q: int):
@@ -326,37 +332,113 @@ def phase2_far_aggregates(qx, qy, alpha_half, rects, far, *, block_q: int, tile_
     return sum_w, sum_wz
 
 
+def far_node_launch(n: int, sms: int, *, block_q: int = 256) -> tuple[int, int]:
+    """``(threads, S)`` of a launch of the quadtree kernel
+    (``csrc/far_node.cu``) for a batch of ``n`` queries in plan blocks of
+    ``block_q`` on a card with ``sms`` multiprocessors: S threads share a
+    query and take every S-th run of its walk, and a CUDA block holds
+    ``threads / S`` queries of one plan block.  One thread a query leaves an
+    SM of a serving batch (81,920 queries after the seam split) about 620
+    threads, too few to hide the gathers' and the special-function units'
+    latency.  S = 2 was faster than S = 1 at every batch size measured, 2^20
+    queries included, and S = 4 faster still where the batch gives fewer
+    than ``_FAR_NODE_THREADS_PER_SM`` threads a SM at S = 2 (8,192 queries);
+    128 threads a block was within 3% of the fastest block size
+    (``chip_smoke.py`` phase 33 times S = 1, 2, 4 at 64, 128 and 256
+    threads a block).  A query's sums do not depend on it."""
+    splits = 2
+    while splits < 4 and n * splits < _FAR_NODE_THREADS_PER_SM * sms:
+        splits *= 2
+    queries = math.gcd(block_q, _FAR_NODE_THREADS // splits)
+    return queries * splits, splits
+
+
+def far_node_terms(qx3, qy3, alpha_half3, ids, nodes):
+    """The plain version's terms of one tile of node ids, each ``(nb,
+    block_q, tile)`` for queries ``(nb, block_q, 1)`` and ids ``(nb, 1,
+    tile)``: ``(d2, w, w count, w z_sum, dip)``, the aggregate term ``w
+    count`` and the z term ``w z_sum + dip``, with ``dip = (((2 ah) w) /
+    max(d^2, tiny)) (dqx mx + dqy my)``."""
+    fx, fy, fcnt, fzs, fmx, fmy = nodes
+    dqx = qx3 - fx[ids]
+    dqy = qy3 - fy[ids]
+    d2 = dqx * dqx + dqy * dqy
+    w = pow_weight(d2, alpha_half3)
+    grad = (2.0 * alpha_half3) * w / torch.clamp(d2, min=tiny_for(d2.dtype))
+    dip = grad * (dqx * fmx[ids] + dqy * fmy[ids])
+    return d2, w, w * fcnt[ids], w * fzs[ids], dip
+
+
 def phase2_far_nodes_plain(qx, qy, alpha_half, tbl, num_tiles, nodes, *, block_q: int, tile_d: int):
     """Plain version of :func:`phase2_far_nodes`: the kernel's arithmetic tile
-    by tile, each tile summed in the kernel's order (``run_sum``) and folded
-    into the running sums, a row left untouched past its tile count."""
-    fx, fy, fcnt, fzs, fmx, fmy = nodes
+    by tile (:func:`far_node_terms`), each tile summed in the kernel's order
+    (``run_sum``) and folded into the running sums, a row left untouched past
+    its tile count.  It walks whole tiles, where the kernel may stop at the
+    closed nodes: the same bits."""
     n = qx.shape[0]
     nb, k_pad = tbl.shape
-    tiny = tiny_for(qx.dtype)
     sum_w = torch.zeros((n,), dtype=qx.dtype, device=qx.device)
     sum_wz = torch.zeros_like(sum_w)
     qx3, qy3 = qx.reshape(nb, block_q, 1), qy.reshape(nb, block_q, 1)
     ah3 = alpha_half.reshape(nb, block_q, 1)
-    ids_all = torch.where((tbl < 0) | (tbl >= fx.shape[0]), fx.shape[0] - 1, tbl).long()
+    ids_all = torch.where((tbl < 0) | (tbl >= nodes[0].shape[0]), nodes[0].shape[0] - 1, tbl).long()
     steps = min(k_pad // tile_d, int(num_tiles.max()) if nb else 0)
     for j in range(steps):
-        ids = ids_all[:, None, j * tile_d:(j + 1) * tile_d]
-        dqx = qx3 - fx[ids]
-        dqy = qy3 - fy[ids]
-        d2 = dqx * dqx + dqy * dqy
-        w = pow_weight(d2, ah3)
-        grad = (2.0 * ah3) * w / torch.clamp(d2, min=tiny)
-        dip = grad * (dqx * fmx[ids] + dqy * fmy[ids])
-        tile_w = run_sum((w * fcnt[ids]).reshape(n, tile_d))[:, 0]
-        tile_wz = run_sum((w * fzs[ids] + dip).reshape(n, tile_d))[:, 0]
+        _, _, a, wz, dip = far_node_terms(qx3, qy3, ah3, ids_all[:, None, j * tile_d:(j + 1) * tile_d], nodes)
+        tile_w = run_sum(a.reshape(n, tile_d))[:, 0]
+        tile_wz = run_sum((wz + dip).reshape(n, tile_d))[:, 0]
         live = (j < num_tiles).repeat_interleave(block_q)
         sum_w = torch.where(live, sum_w + tile_w, sum_w)
         sum_wz = torch.where(live, sum_wz + tile_wz, sum_wz)
     return sum_w, sum_wz
 
 
-def phase2_far_nodes(qx, qy, alpha_half, tbl, num_tiles, nodes, *, block_q: int, tile_d: int):
+def phase2_far_nodes_tolerance(qx, qy, alpha_half, tbl, num_tiles, nodes, *, block_q: int, tile_d: int):
+    """Per-query tolerance ``(tol_w, tol_wz)``, float64 ``(n,)`` each, of
+    the float32 kernel's sums (``csrc/far_node.cu``: w from the
+    special-function units, the dipole's division a product with
+    ``rcp.approx``) against :func:`phase2_far_nodes_plain` on the same
+    inputs, from the terms ``a = w count`` and ``b = w z_sum + dip`` of each
+    query's walked tiles::
+
+        tol_w  = sum |a| (eps + u) + slack(sum |a|)
+        tol_wz = sum (|w z_sum| (eps + 2 u) + |dip| (eps + 5 u)) + slack(sum |b|)
+
+    with ``u = 2^-23`` and ``eps`` w's own budget (``sfu_weight_eps``).
+    ``u``: a product with count or z_sum, rounded on each side, half an ulp
+    each.  The dipole, ``((2 ah) w) rcp(d^2)`` times the moment term against
+    ``((2 ah) w) / d^2`` times the same moment term: w's error,
+    ``rcp.approx``'s 1 ulp, and three roundings on each side, 4 u; the sum
+    ``w z_sum + dip``, rounded on each side, u more on both of its parts.
+    ``slack``: ``sfu_sum_tolerance``'s summation slack of ``run_sum``'s
+    order, which the kernel keeps however many threads share a query (their
+    run sums are folded in run order) and wherever it stops (a sentinel run
+    adds +0 exactly).  A reciprocal or a weight below float32's normal range
+    (d^2 > 2^126, or w < 2^-126) flushes to 0, outside this budget."""
+    n = qx.shape[0]
+    nb, k_pad = tbl.shape
+    acc = torch.zeros((4, n), dtype=torch.float64, device=qx.device)
+    qx3, qy3 = qx.reshape(nb, block_q, 1), qy.reshape(nb, block_q, 1)
+    ah3 = alpha_half.reshape(nb, block_q, 1)
+    ids_all = torch.where((tbl < 0) | (tbl >= nodes[0].shape[0]), nodes[0].shape[0] - 1, tbl).long()
+    tiles = torch.clamp(num_tiles.long(), 0, k_pad // tile_d)
+    for j in range(int(tiles.max()) if nb else 0):
+        d2, _, a, wz, dip = far_node_terms(qx3, qy3, ah3, ids_all[:, None, j * tile_d:(j + 1) * tile_d], nodes)
+        eps = sfu_weight_eps(d2, ah3)
+        live = (j < tiles).repeat_interleave(block_q)
+
+        def budget(term, e):
+            return sfu_term_budget(term.reshape(n, tile_d), e.reshape(n, tile_d))[0]
+
+        part = torch.stack([budget(a, eps + EPS32), a.double().abs().reshape(n, tile_d).sum(dim=1),
+                            budget(wz, eps + 2 * EPS32) + budget(dip, eps + 5 * EPS32),
+                            (wz + dip).double().abs().reshape(n, tile_d).sum(dim=1)])
+        acc += torch.where(live, part, 0.0)
+    walked = tiles.repeat_interleave(block_q)
+    return tuple(sfu_sum_tolerance(acc[i], acc[i + 1], tile_d, walked) for i in (0, 2))
+
+
+def phase2_far_nodes(qx, qy, alpha_half, tbl, num_tiles, nodes, *, block_q: int, tile_d: int, n_closed=None):
     """One quadtree level's far sweep over each block's closed-node table.
 
     ``qx, qy, alpha_half (n,)`` with ``n = nb * block_q``; ``tbl (nb, k_pad)``
@@ -365,7 +447,12 @@ def phase2_far_nodes(qx, qy, alpha_half, tbl, num_tiles, nodes, *, block_q: int,
     0`` and ``tile_d % SUM_RUN == 0``; ``num_tiles (nb,)`` int32, row i walks
     its first ``num_tiles[i]`` tiles; ``nodes`` the level's ``(n_nodes + 1,)``
     arrays ``(cent_x, cent_y, count, z_sum, mx, my)``, the last entry the
-    sentinel node.  Returns ``(sum_w, sum_wz)``, ``(n,)`` each.
+    sentinel node.  ``n_closed``, optional ``(nb,)`` int32: row i holds the
+    sentinel in every slot from ``n_closed[i]`` on (the walk's compacted
+    tables), and the kernel stops there, rounded up to a run of ``SUM_RUN``;
+    the plain version walks the whole tiles, and both give the same bits
+    (a sentinel slot adds exactly +0).  Returns ``(sum_w, sum_wz)``, ``(n,)``
+    each.
     """
     n = qx.shape[0]
     nb, k_pad = tbl.shape
@@ -373,21 +460,23 @@ def phase2_far_nodes(qx, qy, alpha_half, tbl, num_tiles, nodes, *, block_q: int,
     n_nodes = nodes[0].shape[0] - 1 if nodes else -1
     if (tile_d <= 0 or tile_d % SUM_RUN or k_pad % tile_d or len(nodes) != 6 or n_nodes < 0
             or any(a.shape != (n_nodes + 1,) for a in nodes) or not (qy.shape == alpha_half.shape == qx.shape)
-            or num_tiles.shape != (nb,)):
+            or num_tiles.shape != (nb,) or (n_closed is not None and n_closed.shape != (nb,))):
         raise ValueError(f"phase2_far_nodes: bad shapes q={tuple(qx.shape)} tbl={tuple(tbl.shape)} "
                          f"nodes={[tuple(a.shape) for a in nodes]} num_tiles={tuple(num_tiles.shape)} "
                          f"tile_d={tile_d}")
-    if not _on_card("phase2_far_nodes", qx, qy, alpha_half, tbl, num_tiles, *nodes):
+    counts = (num_tiles,) if n_closed is None else (num_tiles, n_closed)
+    if not _on_card("phase2_far_nodes", qx, qy, alpha_half, tbl, *counts, *nodes):
         return phase2_far_nodes_plain(qx, qy, alpha_half, tbl, num_tiles, nodes, block_q=block_q, tile_d=tile_d)
     _check_float("phase2_far_nodes", qx, qy, alpha_half, *nodes)
-    for name, a in (("tbl", tbl), ("num_tiles", num_tiles)):
-        if a.dtype != torch.int32 or not a.is_contiguous():
+    for name, a in (("tbl", tbl), ("num_tiles", num_tiles), ("n_closed", n_closed)):
+        if a is not None and (a.dtype != torch.int32 or not a.is_contiguous()):
             raise ValueError(f"phase2_far_nodes: {name} must be a contiguous int32 tensor")
     sum_w, sum_wz = torch.empty_like(qx), torch.empty_like(qx)
+    threads, splits = far_node_launch(n, _sm_count(qx.device.index), block_q=block_q)
     fn = _build.entry(f"aidw_far_node_{_suffix(qx.dtype)}")
     err = fn(qx.data_ptr(), qy.data_ptr(), alpha_half.data_ptr(), tbl.data_ptr(), num_tiles.data_ptr(),
-             *(a.data_ptr() for a in nodes), n, block_q, k_pad, tile_d, n_nodes,
-             math.gcd(block_q, _FAR_NODE_THREADS), tiny_for(qx.dtype), sum_w.data_ptr(), sum_wz.data_ptr(),
+             None if n_closed is None else n_closed.data_ptr(), *(a.data_ptr() for a in nodes), n, block_q, k_pad,
+             tile_d, n_nodes, threads, splits, tiny_for(qx.dtype), sum_w.data_ptr(), sum_wz.data_ptr(),
              torch.cuda.current_stream(qx.device).cuda_stream)
     _build.check(err, "phase2_far_nodes launch")
     _build.LAUNCHES["far_node"] += 1

@@ -8,7 +8,7 @@
 // same bits as the plain PyTorch version's, near-ties pick the same
 // neighbours, and the exact-hit test `min d^2 <= eps` flips the same way.
 // exp/log/cos/sqrt are the precise library functions (no fast math), with
-// one exception: the float32 weight of every exact and near sweep
+// one exception: the float32 weight of every exact, near and far sweep
 // (pow_weight) is 2^(-(alpha/2) log2 d^2) on the special-function units,
 // lg2.approx and ex2.approx, one MUFU op each.  Its rounding is dominated by
 // t = (alpha/2) ln d^2, whose float32 rounding alone is |t| 2^-24 relative
@@ -17,8 +17,9 @@
 // versions (kernels/_common.py: pow_weight) keep torch.exp/torch.log: the
 // exact sweeps are held against them at 64 ulps of z, the near and far-cell
 // sums (near.cu, far.cu) within a per-query budget derived from the terms
-// (kernels/_common.py: sfu_sum_tolerance).  far_node.cu keeps exp_p/log_p
-// and its bitwise check.  Float64 keeps the precise functions everywhere.
+// (kernels/_common.py: sfu_sum_tolerance), and so are the quadtree node
+// sums (far_node.cu, whose dipole also takes rcp.approx for its division).
+// Float64 keeps the precise functions everywhere.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -74,6 +75,10 @@ __device__ __forceinline__ void cp_async_elem(float* dst, const float* src) {
 __device__ __forceinline__ void cp_async_elem(double* dst, const double* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_elem(int* dst, const int* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
 }
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
 
@@ -300,6 +305,13 @@ __device__ __forceinline__ float ex2_sfu(float x) {
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
 }
+// rcp.approx.ftz.f32: 1/x within 1 ulp, one MUFU op; a result below
+// float32's normal range (x > 2^126) is flushed to 0, 1/+inf is +0.
+__device__ __forceinline__ float rcp_sfu(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
 // The weight of Eq. (1), with neg_ah = -alpha / 2: (max(d^2, tiny))^neg_ah.
 // float32: 2^(neg_ah * log2 x) on the special-function units (see the
@@ -308,8 +320,9 @@ __device__ __forceinline__ float ex2_sfu(float x) {
 // takes tiny, and a sentinel pad point (d^2 = +inf) gets log = +inf, t =
 // -inf and w = +0; in float32 it is fmaxf, one FMNMX, which gives the same
 // value as the compare and select of float64 for every d^2, NaN included.
-// Every exact and near weight loop (weight_tile, run_group, below) takes
-// its weights from here, so all exact variants keep one set of bits.
+// Every exact, near and far weight loop (weight_tile, run_group, below;
+// far_node.cu: node_run) takes its weights from here, so all exact variants
+// keep one set of bits.
 __device__ __forceinline__ float pow_weight(float neg_ah, float d2, float tiny) {
   return ex2_sfu(mul_rn(neg_ah, lg2_sfu(fmaxf(d2, tiny))));
 }

@@ -95,6 +95,19 @@ __device__ __forceinline__ void staged_vec(const double* s, int i, double& a, do
   d = v.y;
 }
 
+// A staged pair {a, b}: one 8-byte (float2) or 16-byte (double2) load.
+__device__ __forceinline__ void staged_pair(const float* s, int i, float& a, float& b) {
+  const float2 p = reinterpret_cast<const float2*>(s)[i];
+  a = p.x;
+  b = p.y;
+}
+
+__device__ __forceinline__ void staged_pair(const double* s, int i, double& a, double& b) {
+  const double2 p = reinterpret_cast<const double2*>(s)[i];
+  a = p.x;
+  b = p.y;
+}
+
 __device__ __forceinline__ void staged_xyz(const float* s, int i, float& x, float& y, float& z) {
   const float4 p = reinterpret_cast<const float4*>(s)[i];
   x = p.x;

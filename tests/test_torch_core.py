@@ -9,6 +9,7 @@ Integer and layout state (grid, radii, Morton ids, seam layouts) must be
 equal exactly.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -91,6 +92,70 @@ def test_port_imports_neither_jax_nor_repro():
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "isolated" in out.stdout
+
+
+# the first exp/log over a large tensor in a fresh interpreter, with 8
+# intra-op threads, through the port's CPU path: the inputs made by PyTorch
+# arithmetic (as the plain versions make d^2), then exp, log or the plain
+# versions' sq_dist_tile and pow_weight, op i % 6 first in interpreter i;
+# every result compared bit for bit with a one-thread computation of the
+# same call.  The interpreters start together but compute one at a time,
+# behind a file lock: with the cores shared the fault hardly shows.
+_FIRST_CALL_CODE = """
+import fcntl, json, sys
+import numpy as np
+import repro_torch
+import torch
+from repro_torch.kernels._common import pow_weight, sq_dist_tile
+i = int(sys.argv[1])
+u_np = np.random.default_rng(i).random((4, 1 << 22))
+ops = [("exp", torch.float32), ("log", torch.float32), ("exp", torch.float64), ("log", torch.float64),
+       ("pow_weight", torch.float32), ("pow_weight", torch.float64)]
+bad = {}
+with open(sys.argv[2], "w") as lock:
+    fcntl.flock(lock, fcntl.LOCK_EX)
+    torch.set_num_threads(8)
+    u = torch.as_tensor(u_np)
+    x = u[0] * 20.0 - 10.0
+    for name, dt in ops[i % 6:] + ops[:i % 6]:
+        if name == "pow_weight":
+            q, d = u[1:3, :2048].to(dt), u[1:3, 2048:4096].to(dt)
+            ah = u[3, :2048, None].to(dt) * 2.25 + 0.25
+            def fn(ah=ah, q=q, d=d):
+                return pow_weight(sq_dist_tile(q[0, :, None], q[1, :, None], d[0, None], d[1, None]), ah)
+        else:
+            arg = (x.abs() + 1e-3 if name == "log" else x).to(dt)
+            def fn(f=getattr(torch, name), arg=arg):
+                return f(arg)
+        torch.set_num_threads(8)
+        first = fn()
+        torch.set_num_threads(1)
+        steady = fn()
+        bad[f"{name} {str(dt)[6:]}"] = int((first != steady).sum())
+print(json.dumps(bad))
+"""
+
+
+def test_first_cpu_exp_log_give_steady_bits(tmp_path):
+    """The first ``torch.exp``/``torch.log`` over 2^22 elements in a process,
+    on 8 threads, gives one thread's share of the result far off unless the
+    port warms them up at import (``repro_torch/_cpu_warmup.py``): 24 fresh
+    interpreters each compute exp, log and the plain versions'
+    ``pow_weight`` in float32 and float64 and compare each with a one-thread
+    computation, bit for bit.  Without the warm-up about one interpreter in
+    eight shows the fault here, when nothing else loads the cores."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    lock = str(tmp_path / "compute.lock")
+    procs = [subprocess.Popen([sys.executable, "-c", _FIRST_CALL_CODE, str(i), lock], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for i in range(24)]
+    results = []
+    for p in procs:
+        out, err = p.communicate(timeout=300)
+        assert p.returncode == 0, err
+        results.append(json.loads(out.strip().splitlines()[-1]))
+    wrong = [(i, r) for i, r in enumerate(results) if any(r.values())]
+    assert not wrong, wrong
+    assert all(len(r) == 6 for r in results)
 
 
 def test_build_plan_defaults_to_cuda():

@@ -50,20 +50,6 @@ CASES = {"gx12": (12, 2, 64, None), "gx12-tile64": (12, 2, 64, 64), "gx40": (40,
          "gx40-tile128": (40, 3, 32, 128)}
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _steady_exp_log():
-    """On the CPU, with several threads, the first ``torch.exp`` or
-    ``torch.log`` over a large tensor in a process can give parts of it far
-    more than an ulp off (seen with torch 2.13.0+cpu on 8 threads); every
-    later call gives the same, accurate bits.  One call of each on a large
-    tensor first, so that the plain versions held here give their steady
-    bits."""
-    for dtype in (torch.float32, torch.float64):
-        x = torch.linspace(0.5, 2.0, 1 << 20, dtype=dtype)
-        torch.exp(x)
-        torch.log(x)
-
-
 def _np(t):
     return t.detach().cpu().numpy()
 

@@ -16,8 +16,10 @@ versions); here:
 * the sources route every exact weight through ``pow_weight``, every exact
   tile loop through ``weight_tile``, the near-field and far-cell sweeps
   (``near.cu``, ``far.cu``) through ``run_stage`` to ``pow_weight`` as well,
-  and the quadtree kernel (``far_node.cu``) keeps ``exp_p``/``log_p``, on
-  which its bitwise check against its plain version rests;
+  and the quadtree kernel (``far_node.cu``) through ``node_run`` to
+  ``pow_weight``, with no precise ``exp_p``/``log_p`` of its own (float64
+  reaches them inside ``pow_weight`` alone; its float32 sums are held within
+  a per-query tolerance, ``tests/test_torch_far_node_sfu.py``);
 * the wrapper's launch rule, ``kernels/aidw_tiled.py: weight_launch``.
 """
 
@@ -150,11 +152,17 @@ def test_exact_weights_go_through_pow_weight():
         src = _code(name)
         assert not re.search(r"\b(exp_p|log_p|expf|logf|exp2f|log2f|__expf|__logf|exp|log|pow_weight)\s*\(", src), name
         assert src.count(f"run_stage<T, {near}>(") == 1, name
-    # the quadtree kernel keeps the precise functions: its check against its
-    # plain version (torch.exp/torch.log, summed in the same order) is bitwise
+    # the quadtree kernel takes its float32 weights from pow_weight too, in
+    # its one run loop, and calls no precise exp/log of its own: float64
+    # reaches exp_p/log_p inside pow_weight alone (tests/test_torch_far_node_sfu.py
+    # holds its float32 sums within a per-query tolerance)
     src = _code("far_node.cu")
-    assert "exp_p(" in src and "log_p(" in src
-    assert not re.search(r"\b(pow_weight|weight_group|weight_tile|run_stage|run_span|run_group)\(", src)
+    run = re.search(r"void node_run\(.*?\n\}", src, re.S).group(0)
+    assert "pow_weight(neg_ah, d2, tiny)" in run
+    assert not re.search(r"\b(exp_p|log_p|expf|logf|exp2f|log2f|__expf|__logf|exp|log|lg2_sfu|ex2_sfu)\s*\(", src)
+    assert src.count("pow_weight(") == 1 and src.count("node_run(") == 2  # its definition and the kernel's call
+    assert not re.search(r"\b(weight_group|weight_tile|run_stage|run_span|run_group)\(", src)
+    assert "exp_p(mul_rn(neg_ah, log_p(d2 > tiny ? d2 : tiny)))" in f64
 
 
 @pytest.mark.parametrize("n, expected", [(1, 128), (255, 128), (256, 128), (8000, 128), (65536, 256),
