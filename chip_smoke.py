@@ -120,7 +120,9 @@ in order (a failed check raises, and the script exits nonzero):
     (``kernels/aidw_tiled.py: weight_launch``), both giving the same bits;
 31. B1 (float32, shared row) timed with CUDA events at S = 1, 2 and 4
     threads a query and 128 or 256 threads a block, at 8,192, 65,536 and
-    2^20 queries: all give the same bits, and the wrapper's choice
+    2^20 queries (in phases 31-33 each setting's time is the median of 5
+    rounds that time every setting in turn): all give the same bits, and
+    the wrapper's choice
     (``kernels/aidw_tiled.py: knn_launch``) is the fastest or within 3%;
 32. B4 and B5 (float32) timed with CUDA events at 64, 128 and 256 threads
     a block at 8,192, 65,536 (two batches) and 2^20 queries, beside the
@@ -131,7 +133,17 @@ in order (a failed check raises, and the script exits nonzero):
     = 1, 2 and 4 threads a query and 64, 128 and 256 threads a block at
     8,192, 65,536 and 2^20 queries, beside the wrapper's choice
     (``kernels/aidw_grid.py: far_node_launch``), which must be the fastest
-    or within 5%, all giving the same bits.
+    or within 5%, all giving the same bits;
+34. the serving layer on ``aidw-pod-1m``: an exact grid plan sized for 64
+    queries a cell behind a ``CapacityReestimator``, served uniform 65,536
+    batches until the overflow streak triggers a background re-plan and the
+    swap ends the overflow; each batch's wall, overflow and state, the
+    batches before the swap bitwise the old plan's and the first after it
+    a fresh ``replan_with_capacity``'s, z within phase 5's gate, B3 and B2
+    launched; the same storm on a far-field plan with ``p2_capacity``,
+    ``p2_overflow_queries`` and the masked B2 arm's time before and after
+    the swap; three injected build failures degrading with one
+    ``PlanDegradedWarning``; and the plan memo of ``kernels.aidw``.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Without a CUDA card,
@@ -158,6 +170,11 @@ M_FULL = 1 << 20                       # aidw-pod-1m: the paper's 1000K rounded 
 SERVING = [(65536, 1), (65536, 2), (65536, 3), (M_FULL, 4)]  # (queries, seed)
 N_SAMPLE = 1024                        # queries per batch held against the f64 reference
 N_CHECK = 2048                         # queries of the shared-row kernel checks
+# phase 34: the serving plans assume this many queries a cell (the reference
+# tests' deliberately undersized capacity), and after the re-plan's join the
+# storm serves this many more batches
+SERVE_QO = 64.0
+POST_BATCHES = 3
 # B6, and B4/B5 in float64, against their plain versions: the same terms
 # (precise exp/log on both sides) summed in the same order
 # (kernels/_common.py: run_sum), so the sums differ only where the card's
@@ -230,6 +247,20 @@ KERNELS = {
 def check(ok, what):
     if not ok:
         raise RuntimeError(f"check failed: {what}")
+
+
+def time_in_turns(time_ms, runs, reps, rounds=5):
+    """CUDA-event ms of each setting's ``run``: the median of ``rounds``
+    rounds that time every setting in turn, so that a drift of the card's
+    clock or of its neighbours between settings does not decide which one
+    is fastest."""
+    import statistics
+
+    times = {key: [] for key in runs}
+    for _ in range(rounds):
+        for key, run in runs.items():
+            times[key].append(time_ms(run, reps))
+    return {key: statistics.median(t) for key, t in times.items()}
 
 
 def report(name, err, tol):
@@ -844,6 +875,8 @@ def main():
     knn_shape_phase(params=params, data=data, queries=queries, time_ms=time_ms)
     row_shape_phase(params=params, data=data, queries=queries, time_ms=time_ms)
     far_node_shape_phase(params=params, data=data, queries=queries, time_ms=time_ms)
+    serving_phase(dev=dev, params=params, data=data, queries=queries, sync=sync, maxerr=maxerr, time_ms=time_ms,
+                  z_tol=z_tol)
     print(f"  total {time.time() - t_start:.1f} s")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2377,19 +2410,21 @@ def knn_shape_phase(*, params, data, queries, time_ms):
         qx, qy = queries(n, 31)
         ref = knn_alpha(qx, qy, dxp[None], dyp[None], block_q=block_q, tile_d=block_d, params=params, area=1.0,
                         m_real=M_FULL)
-        got = {}
+        runs = {}
         for threads in (128, 256):
             for splits in (1, 2, 4):
                 out = torch.empty_like(qx)
 
-                def run():
+                def run(threads=threads, splits=splits, out=out):
                     _build.check(fn(qx.data_ptr(), qy.data_ptr(), dxp.data_ptr(), dyp.data_ptr(), 0, None, n,
                                     block_q, dxp.shape[0], block_d, 0, params.k, threads, splits, *consts,
                                     out.data_ptr(), stream), "knn launch")
 
-                got[threads, splits] = time_ms(run, 1 if n == M_FULL else 3)
+                run()
                 check(torch.equal(out, ref), f"B1 with {threads} threads and S = {splits} gives the wrapper's bits "
                                              f"(n={n})")
+                runs[threads, splits] = run
+        got = time_in_turns(time_ms, runs, 1 if n == M_FULL else 3)
         best = min(got, key=got.get)
         rule = knn_launch(n, sms, block_q=block_q)
         print(f"  n={n}: " + ", ".join(f"{t} threads S={sp} {ms} ms" for (t, sp), ms in got.items())
@@ -2446,17 +2481,19 @@ def row_shape_phase(*, params, data, queries, time_ms):
               f"tiles of {p.p2_block_d} (mean {float(nt.mean()):.2f}, std {float(nt.std()):.2f})", flush=True)
         for name, fn in fns.items():
             rule = row_launch(n_v, sms, block_q=p.block_q, far=name == "B5")
-            got = {}
+            runs = {}
             for threads in (64, 128, 256):
                 outs = [torch.empty_like(lay.qx_v) for _ in refs[name]]
                 call = args[name](threads)
 
-                def run():
+                def run(call=call, outs=outs):
                     _build.check(fn(*call, *(o.data_ptr() for o in outs), stream), f"{name} launch")
 
-                got[threads] = time_ms(run, 1 if n == M_FULL else 3)
+                run()
                 check(all(torch.equal(o, r) for o, r in zip(outs, refs[name])),
                       f"{name} with {threads} threads gives the wrapper's bits (n={n})")
+                runs[threads] = run
+            got = time_in_turns(time_ms, runs, 1 if n == M_FULL else 3)
             best = min(got, key=got.get)
             print(f"    {name}: " + ", ".join(f"{t} threads {ms} ms" for t, ms in got.items())
                   + f"; fastest {best}; row_launch picks {rule} ({sms} SMs), {got[rule] / got[best]:.4f}x the "
@@ -2506,22 +2543,24 @@ def far_node_shape_phase(*, params, data, queries, time_ms):
                 for tbl, nt, nc, nodes, _, tile in levels]
         outs = [(torch.empty_like(ah), torch.empty_like(ah)) for _ in levels]
         rule = far_node_launch(n_v, sms, block_q=p.block_q)
-        got = {}
+        runs = {}
         for threads in (64, 128, 256):
             for splits in (1, 2, 4):
                 if splits > 1 and threads // splits > 128:
                     continue
 
-                def run():
+                def run(threads=threads, splits=splits):
                     for (tbl, nt, nc, nodes, k_pad, tile), (sw, swz) in zip(levels, outs):
                         _build.check(fn(lay.qx_v.data_ptr(), lay.qy_v.data_ptr(), ah.data_ptr(), tbl.data_ptr(),
                                         nt.data_ptr(), nc.data_ptr(), *(a.data_ptr() for a in nodes), n_v, p.block_q,
                                         k_pad, tile, nodes[0].shape[0] - 1, threads, splits, tiny, sw.data_ptr(),
                                         swz.data_ptr(), stream), "far_node launch")
 
-                got[threads, splits] = time_ms(run, 3)
+                run()
                 check(all(torch.equal(o[0], r[0]) and torch.equal(o[1], r[1]) for o, r in zip(outs, refs)),
                       f"B6 with {threads} threads and S = {splits} gives the wrapper's bits (n={n})")
+                runs[threads, splits] = run
+        got = time_in_turns(time_ms, runs, 3)
         best = min(got, key=got.get)
         print(f"  n={n} seed={seed} ({n_v} queries after the seam split, {len(levels)} levels): "
               + ", ".join(f"{t} threads S={sp} {ms} ms" for (t, sp), ms in got.items())
@@ -2530,6 +2569,292 @@ def far_node_shape_phase(*, params, data, queries, time_ms):
         check(got[rule] <= 1.05 * got[best], f"far_node_launch's pick at n={n} is within 5% of the fastest setting")
         del lay, levels, refs, outs
     print(f"  phase 33: {time.time() - t_phase:.1f} s", flush=True)
+
+
+def serving_phase(*, dev, params, data, queries, sync, maxerr, time_ms, z_tol):
+    """Phase 34: the serving layer (``repro_torch.serving``) on ``aidw-pod-1m``.
+
+    (a) An exact grid plan sized for ``SERVE_QO`` queries a cell, far denser
+    than the uniform 65,536-query batches served against it, behind a
+    ``CapacityReestimator`` with a one-batch warmup: batches (seeds 5 and up)
+    until ``overflow_queries`` is 0 after a swap, ``join()``, then more
+    batches.  Each batch's wall, overflow, need and state; the trigger, the
+    batches to recovery (at most 2 x ``PERSISTENT_OVERFLOW_BATCHES``), the
+    capacities, the re-plan's host seconds, the largest wall during the
+    re-plan against the median after it, B3 and B2 launches.  Checks: the
+    batches before the swap are the old plan's bits, the first after it a
+    fresh ``replan_with_capacity``'s, z within phase 5's gate.  (b) The same
+    storm on a far-field plan: ``p2_capacity``, ``p2_overflow_queries`` and
+    the masked B2 arm's CUDA-event time before and after the swap, and the
+    default exact and far-field plans at their seam level and the storm
+    plan's, on the first serving batch.  (c) Three
+    injected build failures: one ``PlanDegradedWarning``, state degraded, the
+    installed plan's bits.  (d) ``kernels.aidw(impl="grid")`` twice: one
+    plan build, one miss and one hit in the default registry."""
+    import statistics
+
+    import torch
+
+    from repro_torch.core.aidw import aidw_reference
+    from repro_torch.engine import PERSISTENT_OVERFLOW_BATCHES, build_plan, execute, replan_with_capacity
+    from repro_torch.engine.execute import _grid_layout, _near_field, _phase2_exact_masked
+    from repro_torch.errors import PlanDegradedWarning
+    from repro_torch.kernels import _build, aidw, ops
+    from repro_torch.serving import CapacityReestimator, PlanRegistry, default_registry, faults
+    from repro_torch.serving.reestimator import DEGRADED, HEALTHY
+
+    f32 = torch.float32
+    n_q = SERVING[0][0]
+    dx, dy, dz = data(f32)
+    t_phase = time.time()
+    print(f"== 34. serving: aidw-pod-1m, clustered m = 2^20, k = 10, float32, plans sized for query_occupancy "
+          f"{SERVE_QO}, {n_q}-query uniform batches", flush=True)
+
+    def f64_gate(tag, qx, qy, z, a, seed):
+        # phase 5's gate on N_SAMPLE sampled queries against a float64 brute force
+        idx = torch.as_tensor(np.random.default_rng(seed).choice(qx.shape[0], N_SAMPLE, replace=False), device=dev)
+        d64 = [t.double() for t in (dx, dy, dz)]
+        ref = [aidw_reference(*d64, qx[part].double(), qy[part].double(), params, area=1.0) for part in idx.split(128)]
+        ez = maxerr(z[idx], torch.cat([r[0] for r in ref]))
+        ea = maxerr(a[idx], torch.cat([r[1] for r in ref]))
+        report(f"{tag} z vs f64 reference", ez, z_tol(f32, M_FULL, float(dz.abs().max())))
+        report(f"{tag} alpha vs f64 reference", ea, 1e-5)
+
+    def stamp(log, what):
+        # a fault that records when the worker passes a point, value unchanged
+        def at(value):
+            log.setdefault(what, time.time())
+            return value
+        return at
+
+    def storm(re_, seed0, tag, extra=()):
+        """Serve until a batch after a swap has no overflow; join; serve
+        POST_BATCHES more.  Returns the served batches and the worker's
+        time stamps."""
+        old = re_.plan
+        served, stamps = [], {}
+        limit = None
+        with faults.inject("reestimator.build", transform=stamp(stamps, "build")), \
+                faults.inject("registry.swap", transform=stamp(stamps, "swap")):
+            seed = seed0
+            while True:
+                qx, qy = queries(n_q, seed)
+                installed = re_.plan
+                sync()
+                t0 = time.time()
+                z, a, st = re_.execute(qx, qy)
+                sync()
+                t1 = time.time()
+                b = dict(seed=seed, qx=qx, qy=qy, z=z, a=a, st=st, t0=t0, t1=t1, plan=installed, state=re_.state)
+                served.append(b)
+                more = "".join(f", {k} {int(st[k])}" for k in extra)
+                print(f"  {tag} batch {len(served)} seed={seed}: {t1 - t0} s, overflow_queries "
+                      f"{st['overflow_queries']}, cand_need_max {st['cand_need_max']}{more}, persistent "
+                      f"{st['persistent_overflow']}, state after {b['state']}, "
+                      f"{'old' if installed is old else 'new'} plan", flush=True)
+                if st["persistent_overflow"] and limit is None:
+                    limit = len(served) + 2 * PERSISTENT_OVERFLOW_BATCHES
+                if installed is not old and st["overflow_queries"] == 0:
+                    break
+                check(limit is None or len(served) < limit,
+                      f"{tag}: overflow_queries 0 within 2 x {PERSISTENT_OVERFLOW_BATCHES} batches of the trigger")
+                check(len(served) < 4 * PERSISTENT_OVERFLOW_BATCHES, f"{tag}: the storm triggered a re-plan")
+                seed += 1
+            check(re_.join(timeout=600.0) == HEALTHY, f"{tag}: the re-plan ended healthy")
+            for _ in range(POST_BATCHES):
+                seed += 1
+                qx, qy = queries(n_q, seed)
+                sync()
+                t0 = time.time()
+                z, a, st = re_.execute(qx, qy)
+                sync()
+                t1 = time.time()
+                served.append(dict(seed=seed, qx=qx, qy=qy, z=z, a=a, st=st, t0=t0, t1=t1, plan=re_.plan,
+                                   state=re_.state))
+                print(f"  {tag} batch {len(served)} seed={seed} (after join): {t1 - t0} s, overflow_queries "
+                      f"{st['overflow_queries']}, state {re_.state}", flush=True)
+            # a new streak on the new plan may have started another re-plan
+            check(re_.join(timeout=600.0) in (HEALTHY, DEGRADED), f"{tag}: no re-plan left running")
+        return served, stamps
+
+    def summary(tag, re_, old, served, stamps):
+        trigger = next(i for i, b in enumerate(served) if b["st"]["persistent_overflow"]) + 1
+        first_new = next(i for i, b in enumerate(served) if b["plan"] is not old)
+        recovered = next(i for i, b in enumerate(served) if b["plan"] is not old and b["st"]["overflow_queries"] == 0)
+        new = re_.plan
+        need = max(b["st"]["cand_need_max"] for b in served[:trigger])
+        target = min(max(int(old.cand_capacity * 2.0), need), old.m)
+        during = [b["t1"] - b["t0"] for b in served
+                  if b["t1"] >= stamps.get("build", math.inf) and b["t0"] <= stamps.get("swap", -math.inf)]
+        after = [b["t1"] - b["t0"] for b in served[recovered:]]
+        print(f"  {tag}: trigger at batch {trigger}, first batch on the new plan {first_new + 1}, overflow 0 at batch "
+              f"{recovered + 1} ({recovered + 1 - trigger} after the trigger, limit "
+              f"{2 * PERSISTENT_OVERFLOW_BATCHES}); cand_capacity {old.cand_capacity} -> {new.cand_capacity} "
+              f"(target {target}: 2 x capacity or the need {need}), p2_capacity {old.p2_capacity} -> "
+              f"{new.p2_capacity}; re-plan on the worker, build start to swap (warmup included) "
+              f"{stamps['swap'] - stamps['build']} s; largest wall during it "
+              f"{max(during) if during else 'none (no batch overlapped it)'} s, median after the swap "
+              f"{statistics.median(after)} s; stats {re_.stats()}", flush=True)
+        check(0 < recovered + 1 - trigger <= 2 * PERSISTENT_OVERFLOW_BATCHES, f"{tag}: recovery within the limit")
+        return trigger, first_new, target
+
+    # ------------------------------------------- (a) exact plan, the storm
+    sync()
+    t0 = time.time()
+    plan = build_plan(dx, dy, dz, params=params, area=1.0, impl="grid", query_occupancy=SERVE_QO)
+    sync()
+    print(f"  (a) exact plan build {time.time() - t0} s: cand_capacity {plan.cand_capacity}, cand_block_d "
+          f"{plan.cand_block_d}, seam_level {plan.seam_level}", flush=True)
+    warm = queries(n_q, 4)
+    reg = PlanRegistry()
+    re_ = CapacityReestimator(reg, "aidw-pod-1m", plan, warmup=warm)
+    sync()
+    _build.reset_launch_counts()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the streak's CapacityOverflowWarning
+        served, stamps = storm(re_, 5, "(a)")
+    launches = dict(_build.LAUNCHES)
+    print(f"  (a) launches over the storm, its re-plan and warmup: {launches}", flush=True)
+    check(launches["knn_skip"] > 0 and launches["weight_soa"] > 0, "the served path launched B3 and B2")
+    trigger, first_new, target = summary("(a)", re_, plan, served, stamps)
+    for b in served[:first_new]:
+        z, a = execute(plan, b["qx"], b["qy"])
+        check(torch.equal(z, b["z"]) and torch.equal(a, b["a"]),
+              f"(a) batch seed={b['seed']} before the swap equals the old plan's bits")
+    sync()
+    t0 = time.time()
+    fresh = replan_with_capacity(plan, min_cand_capacity=target, min_p2_capacity=target)
+    sync()
+    replan_s = time.time() - t0
+    b = served[first_new]
+    z, a = execute(fresh, b["qx"], b["qy"])
+    same = torch.equal(z, b["z"]) and torch.equal(a, b["a"])
+    print(f"  (a) a fresh replan_with_capacity on the serving thread: {replan_s} s, cand_capacity "
+          f"{fresh.cand_capacity}; the first batch after the swap equals it bit for bit: {same}; the {first_new} "
+          "batches before the swap equal the old plan's bits: True", flush=True)
+    check(fresh.cand_capacity == re_.plan.cand_capacity and same,
+          "(a) the first batch after the swap equals a fresh re-plan's bits")
+    f64_gate(f"(a) storm batch seed={served[0]['seed']} (old plan)", served[0]["qx"], served[0]["qy"],
+             served[0]["z"], served[0]["a"], served[0]["seed"])
+    f64_gate(f"(a) batch seed={b['seed']} (new plan)", b["qx"], b["qy"], b["z"], b["a"], b["seed"])
+    check(all(bool(torch.isfinite(x["z"]).all()) and x["z"].shape == (n_q,) for x in served),
+          "(a) finite z of the batch's shape")
+    del served, fresh
+
+    # ---------------------------------- (b) far-field plan, the same storm
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        pf = build_plan(dx, dy, dz, params=params, area=1.0, impl="grid", phase2="farfield", farfield_rtol=1e-3,
+                        query_occupancy=SERVE_QO)
+    print(f"  (b) far-field plan: radius {pf.farfield_radius}, bound {pf.farfield_bound}, cand_capacity "
+          f"{pf.cand_capacity}, p2_capacity {pf.p2_capacity}, p2_block_d {pf.p2_block_d}", flush=True)
+
+    def masked_arm(p, qx, qy):
+        # the masked B2 arm of one batch as the engine runs it: the blocks
+        # whose near field overflows p2_capacity, swept over all data
+        lay = _grid_layout(p, qx, qy)
+        near = _near_field(p, lay.cx_v, lay.cy_v)
+        over_v = (near.need > p.p2_capacity).repeat_interleave(p.block_q)
+        over_s = over_v if lay.dest is None else over_v[lay.dest]
+        ah = torch.full_like(lay.qx_s, 2.0)
+        n_sw = int(over_s.reshape(-1, p.block_q).any(dim=1).sum()) * p.block_q
+        ms = time_ms(lambda: _phase2_exact_masked(p, lay.qx_s, lay.qy_s, ah, over_s), 3) if n_sw else 0.0
+        return ms, n_sw
+
+    reg_f = PlanRegistry()
+    re_f = CapacityReestimator(reg_f, "aidw-pod-1m-farfield", pf, warmup=warm)
+    sync()
+    _build.reset_launch_counts()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        served_f, stamps_f = storm(re_f, 5, "(b)", extra=("p2_overflow_queries",))
+    launches = dict(_build.LAUNCHES)
+    print(f"  (b) launches over the storm, its re-plan and warmup: {launches}", flush=True)
+    check(all(launches[k] > 0 for k in ("knn_skip", "near_weight", "far_cell", "weight_soa")),
+          "the far-field storm launched B3, B4, B5 and the masked B2 arm")
+    _, first_new_f, _ = summary("(b)", re_f, pf, served_f, stamps_f)
+    b0, b1 = served_f[0], served_f[first_new_f]
+    for tag, p_, bb in (("old plan, first storm batch", pf, b0), ("new plan, first batch on it", re_f.plan, b1),
+                        ("new plan, the first storm batch again", re_f.plan, b0)):
+        ms, n_sw = masked_arm(p_, bb["qx"], bb["qy"])
+        _, _, st = execute_with_stats_quiet(p_, bb["qx"], bb["qy"])
+        print(f"  (b) {tag} (seed={bb['seed']}): p2_capacity {p_.p2_capacity}, p2_overflow_queries "
+              f"{int(st['p2_overflow_queries'])}, overflow_queries {int(st['overflow_queries'])}; masked B2 arm "
+              f"{ms} ms over {n_sw} swept query slots (CUDA events)", flush=True)
+    check(all(bool(torch.isfinite(x["z"]).all()) for x in served_f), "(b) finite z")
+    del served_f
+    # the re-plan keeps the old plan's seam level but sizes its capacities at
+    # the default query occupancy: the default plans at their own seam level
+    # and at the storm plan's, on the first serving batch
+    qx, qy = queries(*SERVING[0])
+    for phase2 in ("exact", "farfield"):
+        for seam in (None, plan.seam_level):
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                p_ = build_plan(dx, dy, dz, params=params, area=1.0, impl="grid", phase2=phase2, seam_level=seam)
+            walls = []
+            for _ in range(3):
+                sync()
+                t0 = time.time()
+                _, _, st = execute_with_stats_quiet(p_, qx, qy)
+                sync()
+                walls.append(time.time() - t0)
+            p2 = f", p2_capacity {p_.p2_capacity}, p2_overflow_queries {int(st['p2_overflow_queries'])}" \
+                if phase2 == "farfield" else ""
+            print(f"  (b) default {phase2} plan, seam_level {p_.seam_level} ({'auto' if seam is None else 'given'}), "
+                  f"batch n={qx.shape[0]} seed={SERVING[0][1]}: cand_capacity {p_.cand_capacity}, overflow_queries "
+                  f"{int(st['overflow_queries'])}{p2}; walls {walls} s", flush=True)
+            del p_
+
+    # -------------------------------------------- (c) the degrade path
+    pc = dataclasses.replace(plan)  # the old plan's tensors, a fresh overflow streak
+    reg_c = PlanRegistry()
+    re_c = CapacityReestimator(reg_c, "aidw-pod-1m-degrade", pc, max_retries=3)
+    with faults.inject("reestimator.build", error=RuntimeError("injected build failure"), times=3) as fault, \
+            warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        out = []
+        for seed in range(5, 5 + PERSISTENT_OVERFLOW_BATCHES):
+            qx, qy = queries(n_q, seed)
+            out.append((qx, qy, *re_c.execute(qx, qy)[:2]))
+        state = re_c.join(timeout=600.0)
+        qx, qy = queries(n_q, 5 + PERSISTENT_OVERFLOW_BATCHES)
+        out.append((qx, qy, *re_c.execute(qx, qy)[:2]))
+    degr = [w for w in rec if issubclass(w.category, PlanDegradedWarning)]
+    bits = all(torch.equal(z, zz) and torch.equal(a, aa) for qx, qy, z, a in out for zz, aa in [execute(pc, qx, qy)])
+    print(f"  (c) 3 injected build failures (fired {fault.fired}): state {state}, PlanDegradedWarning x{len(degr)} "
+          f"({str(degr[0].message)[:90] if degr else ''}...), stats {re_c.stats()}; the {len(out)} batches equal "
+          f"the installed plan's bits: {bits}", flush=True)
+    check(state == DEGRADED and len(degr) == 1 and fault.fired == 3 and re_c.plan is pc and bits,
+          "(c) one PlanDegradedWarning, state degraded, the installed plan's bits")
+    del out
+
+    # ------------------------------------------------------- (d) the memo
+    ops.plan_cache_clear()
+    qx, qy = queries(*SERVING[0])
+    walls = []
+    for _ in range(2):
+        sync()
+        t0 = time.time()
+        z, a = aidw(dx, dy, dz, qx, qy, params=params, area=1.0, impl="grid")
+        sync()
+        walls.append(time.time() - t0)
+    memo = default_registry().stats()
+    print(f"  (d) kernels.aidw(impl='grid') twice on the same tensors: {walls[0]} s (plan built), {walls[1]} s "
+          f"(memo hit); default registry {memo}", flush=True)
+    check(memo["misses"] == 1 and memo["hits"] == 1 and memo["size"] == 1, "(d) one plan build, one miss, one hit")
+    ops.plan_cache_clear()
+    print(f"  phase 34: {time.time() - t_phase:.1f} s", flush=True)
+
+
+def execute_with_stats_quiet(plan, qx, qy):
+    """``execute_with_stats`` with its overflow warning silenced (a diagnostic
+    call outside a serving loop)."""
+    from repro_torch.engine import execute_with_stats
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return execute_with_stats(plan, qx, qy)
 
 
 if __name__ == "__main__":

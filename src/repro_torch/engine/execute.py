@@ -494,7 +494,8 @@ def execute(plan: InterpolationPlan, qx, qy):
 
 # Persistent-overflow tracking: per plan object, the run of consecutive
 # execute_with_stats batches with overflow_queries > 0.  At the threshold a
-# one-shot warning suggests a re-plan.
+# one-shot warning suggests a re-plan; repro_torch.serving.CapacityReestimator
+# turns the same streak into an automatic re-plan and swap.
 PERSISTENT_OVERFLOW_BATCHES = 3
 _overflow_streaks: dict[int, int] = {}
 _overflow_lock = threading.Lock()
@@ -512,7 +513,8 @@ def _note_overflow(plan: InterpolationPlan, n_overflow: int) -> bool:
             f"overflow_queries > 0 for {streak} consecutive batches against this plan: the static "
             "candidate capacity looks undersized for the serving workload (results stay exact via "
             "the ring-search blend, but at ring-search cost). Consider re-planning with a lower "
-            "query_occupancy= or a coarser grid.",
+            "query_occupancy= or a coarser grid — or serve through "
+            "repro_torch.serving.CapacityReestimator, which re-plans and swaps automatically.",
             CapacityOverflowWarning, stacklevel=3)
     return streak >= PERSISTENT_OVERFLOW_BATCHES
 

@@ -433,7 +433,8 @@ def _pad_data(dx, dy, dz, mult: int):
 
 
 def _plan_grid(dx, dy, dz, *, params, block_q, block_d, grid, target_occupancy,
-               query_occupancy, seam_level, phase2, farfield_rtol, farfield_radius, min_p2_capacity):
+               query_occupancy, seam_level, phase2, farfield_rtol, farfield_radius, min_cand_capacity,
+               min_p2_capacity):
     """Grid-impl plan fields: snapshot, static capacity, tile widths, and
     for ``phase2="farfield"`` or ``"quadtree"`` the far-field fields."""
     m = int(dx.shape[0])
@@ -463,6 +464,8 @@ def _plan_grid(dx, dy, dz, *, params, block_q, block_d, grid, target_occupancy,
 
     # a candidate tile no wider than the (128-aligned) capacity
     capacity = min(capacity, m)
+    if min_cand_capacity is not None:
+        capacity = min(max(capacity, int(min_cand_capacity)), m)
     cand_block_d = min(block_d, max(128, _round_up(capacity, 128)))
     if seam_level is None:
         seam_level = _choose_seam_level(grid, window)
@@ -480,10 +483,13 @@ def _plan_grid(dx, dy, dz, *, params, block_q, block_d, grid, target_occupancy,
 
 
 def _as_data(x, device):
+    # a copy, as the JAX package's plans own theirs: a plan neither pins the
+    # caller's arrays (the plan memo's identity guards evict on their
+    # collection) nor sees in-place edits of them
     t = torch.as_tensor(x, device=device)
     if t.dim() != 1:
         raise ValueError(f"data arrays must be 1-D, got shape {tuple(t.shape)}")
-    return t.contiguous()
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def build_plan(dx, dy, dz, *, params: AIDWParams = AIDWParams(), area: float | None = None,
@@ -491,7 +497,8 @@ def build_plan(dx, dy, dz, *, params: AIDWParams = AIDWParams(), area: float | N
                grid: UniformGrid | None = None, target_occupancy: float | None = None,
                query_occupancy: float | None = None, seam_level: int | None = None,
                pipeline: str = "prefetch", phase2: str = "exact", farfield_rtol: float = 1e-3,
-               farfield_radius: int | None = None, min_p2_capacity: int | None = None, knn: str = "brute",
+               farfield_radius: int | None = None, min_cand_capacity: int | None = None,
+               min_p2_capacity: int | None = None, knn: str = "brute",
                q_chunk: int = 1024, d_chunk: int = 4096, idw_alpha: float = 2.0,
                device=None) -> InterpolationPlan:
     """Build an :class:`InterpolationPlan` from a data set and configuration.
@@ -526,8 +533,9 @@ def build_plan(dx, dy, dz, *, params: AIDWParams = AIDWParams(), area: float | N
     requested error; when it is not provable at a profitable radius the plan
     warns (:class:`UnprovableRtolWarning`) and reports the honest, larger
     bound.  ``farfield_radius`` overrides the radius choice (the bound is
-    computed for it, possibly ``inf``).  ``min_p2_capacity`` floors the
-    near-field capacity, clamped to ``m``.
+    computed for it, possibly ``inf``).  ``min_cand_capacity`` (grid) floors
+    the candidate capacity and ``min_p2_capacity`` the near-field capacity,
+    each clamped to ``m`` (:func:`replan_with_capacity` passes both).
     ``device`` defaults to ``"cuda"`` and fails, as torch does, without a card.
 
     Data must be finite (``ValueError`` otherwise); non-finite queries are
@@ -556,8 +564,9 @@ def build_plan(dx, dy, dz, *, params: AIDWParams = AIDWParams(), area: float | N
         raise ValueError(f"farfield_rtol must be > 0, got {farfield_rtol!r}")
     if farfield_radius is not None and int(farfield_radius) < 1:
         raise ValueError(f"farfield_radius must be >= 1, got {farfield_radius!r}")
-    if min_p2_capacity is not None and int(min_p2_capacity) < 1:
-        raise ValueError(f"min_p2_capacity must be >= 1, got {min_p2_capacity!r}")
+    for name, floor in (("min_cand_capacity", min_cand_capacity), ("min_p2_capacity", min_p2_capacity)):
+        if floor is not None and int(floor) < 1:
+            raise ValueError(f"{name} must be >= 1, got {floor!r}")
 
     device = torch.device("cuda" if device is None else device)
     dx, dy, dz = (_as_data(a, device) for a in (dx, dy, dz))
@@ -592,7 +601,8 @@ def build_plan(dx, dy, dz, *, params: AIDWParams = AIDWParams(), area: float | N
                                  grid=grid, target_occupancy=target_occupancy,
                                  query_occupancy=query_occupancy, seam_level=seam_level,
                                  phase2=phase2, farfield_rtol=float(farfield_rtol),
-                                 farfield_radius=farfield_radius, min_p2_capacity=min_p2_capacity))
+                                 farfield_radius=farfield_radius, min_cand_capacity=min_cand_capacity,
+                                 min_p2_capacity=min_p2_capacity))
     elif impl == "chunked":
         if knn == "grid" and grid is None:
             grid = build_grid(dx, dy, dz, target_occupancy=target_occupancy or DEFAULT_OCCUPANCY)
@@ -603,6 +613,33 @@ def build_plan(dx, dy, dz, *, params: AIDWParams = AIDWParams(), area: float | N
         data = _pad_data(dx, dy, dz, block_d)
         fields.update(data=(soa_to_aoas(*data),) if layout == "aoas" else data)
     return InterpolationPlan(**fields)
+
+
+def replan_with_capacity(plan: InterpolationPlan, *, min_cand_capacity: int | None = None,
+                         min_p2_capacity: int | None = None) -> InterpolationPlan:
+    """Rebuild a grid plan with floored capacities: the re-plan that the
+    serving layer's capacity re-estimator runs on its background thread.
+
+    Everything else is carried over from ``plan``: the unpadded data are the
+    first ``plan.m`` entries of its padded rows, the grid snapshot is reused
+    (the data did not change, the capacity model did), and the statics
+    (params, area, blocks, seam, pipeline, phase2, rtol, an explicit radius so
+    that it cannot drift, and the device) are passed through.  ``block_d`` is
+    the plan's, already the Phase-2 tile, as in the JAX package, so the
+    re-planned plan equals the reference's re-planned plan field for field.
+    The capacities are chosen again at the default ``query_occupancy`` (a
+    plan does not keep the one it was built with), then floored.  The result
+    serves the same queries with the same exactness; only the static
+    candidate widths and their tiles change.
+    """
+    if plan.impl != "grid":
+        raise ValueError(f"replan_with_capacity requires impl='grid', got {plan.impl!r}")
+    dx, dy, dz = (d[:plan.m] for d in plan.data)
+    return build_plan(dx, dy, dz, params=plan.params, area=plan.area, impl="grid", block_q=plan.block_q,
+                      block_d=plan.block_d, grid=plan.grid, seam_level=plan.seam_level, pipeline=plan.pipeline,
+                      phase2=plan.phase2, farfield_rtol=plan.farfield_rtol,
+                      farfield_radius=plan.farfield_radius or None, min_cand_capacity=min_cand_capacity,
+                      min_p2_capacity=min_p2_capacity, device=plan.device)
 
 
 # the far-field plan's padded cell-aggregate arrays, in the order of ``plan.far``

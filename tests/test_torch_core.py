@@ -81,9 +81,15 @@ def test_port_imports_neither_jax_nor_repro():
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
+        "import importlib, pkgutil\n"
         "import repro_torch, repro_torch.core, repro_torch.data, repro_torch.configs\n"
         "import repro_torch.engine, repro_torch.kernels, repro_torch.kernels.aidw_grid\n"
         "import repro_torch.kernels._build, repro_torch.errors\n"
+        "import repro_torch.serving, repro_torch.serving.faults, repro_torch.serving.registry\n"
+        "import repro_torch.serving.reestimator\n"
+        "for mod in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(mod.name)\n"
+        "assert 'repro_torch.kernels.ops' in sys.modules and 'repro_torch.serving.reestimator' in sys.modules\n"
         "bad = [m for m in sys.modules if m == 'repro' or m.startswith('repro.') or m.startswith('jax')]\n"
         "assert bad == ['jax'] and sys.modules['jax'] is None, bad\n"
         "print('isolated')\n"
