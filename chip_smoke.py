@@ -16,7 +16,9 @@ in order (a failed check raises, and the script exits nonzero):
    pair and no FFMA, of the float32 quadtree loop (B6), which must take one
    MUFU.LG2, one MUFU.EX2 and one MUFU.RCP a pair and no FFMA, and of the
    float32 kNN walk's hot loop, which must hold no FFMA and at most one
-   shared load per two pairs;
+   shared load per two pairs, and of the float32 naive kernels' (B7, B8)
+   kNN and weight loops, SoA and AoaS, which must read global memory and no
+   shared memory and, in SoA, read their points with 16-byte vector loads;
 2. each kernel against its plain PyTorch version on the card, float32 and
    float64, at the shapes the main path gives it (m = 2^20): B1 and B3
    alpha bit for bit, with a control that a walk losing one split part
@@ -143,7 +145,12 @@ in order (a failed check raises, and the script exits nonzero):
     launched; the same storm on a far-field plan with ``p2_capacity``,
     ``p2_overflow_queries`` and the masked B2 arm's time before and after
     the swap; three injected build failures degrading with one
-    ``PlanDegradedWarning``; and the plan memo of ``kernels.aidw``.
+    ``PlanDegradedWarning``; and the plan memo of ``kernels.aidw``;
+35. B7 and B8 (float32, ``naive.cu``) timed with CUDA events at S = 1, 2
+    and 4 threads a query and 128 and 256 threads a block, at 8,192, 65,536
+    and 2^20 queries, beside the wrapper's choice
+    (``kernels/aidw_naive.py: naive_launch``), which must be the fastest or
+    within 3%, every setting giving the wrapper's bits.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Without a CUDA card,
@@ -338,14 +345,16 @@ def profile_batch(tag, run):
 
 
 def inner_loop_sass(cuobjdump: str, lib: Path, kernel: str, marker: str = "MUFU.EX2", per_pair: int = 1,
-                    cold: bool = False):
+                    cold: bool = False, exclude: str = ""):
     """The per-pair loop of ``kernel``'s SASS: the innermost loop with the
-    most ``marker`` ops, ``per_pair`` of them a pair (one MUFU.EX2, the exp,
-    in a weight loop; two FMUL, dx^2 and dy^2, in the kNN loop).  With
-    ``cold`` the instructions that a forward branch inside the loop jumps
-    over are left out: the kNN loop's k-best insertion, run only when a
-    group's minimum beats the k-th best.  Returns ``(instructions per pair,
-    {opcode: count per pair})``, or ``None`` when no such loop is found.
+    most ``marker`` ops (the shortest of those), ``per_pair`` of them a pair
+    (one MUFU.EX2, the exp, in a weight loop; two FMUL, dx^2 and dy^2, in
+    the kNN loop), among the loops with no ``exclude`` op (the naive
+    kernel's kNN loop: no MUFU.EX2).  With ``cold`` the instructions that a
+    forward branch inside the loop jumps over are left out: the kNN loop's
+    k-best insertion, run only when a group's minimum beats the k-th best.
+    Returns ``(instructions per pair, {opcode: count per pair})``, or
+    ``None`` when no such loop is found.
     Also writes the library's SASS beside it as ``<lib>.sass``."""
     text = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
                           check=True).stdout
@@ -371,10 +380,13 @@ def inner_loop_sass(cuobjdump: str, lib: Path, kernel: str, marker: str = "MUFU.
         skipped = [(b, e) for b, e in branches if cold and t <= b < e <= a]
         bodies.append([op for addr, op in instr
                        if t <= addr <= a and not any(b < addr < e for b, e in skipped)])
-    bodies = [b for b in bodies if any(is_op(op, marker) for op in b)]
+    bodies = [b for b in bodies if any(is_op(op, marker) for op in b)
+              and not (exclude and any(is_op(op, exclude) for op in b))]
     if not bodies:
         return None
-    body = max(bodies, key=lambda b: sum(is_op(op, marker) for op in b))
+    # among loops with as many marker ops, the shortest: a loop that the
+    # compiler unrolled for a remainder carries its exits as well
+    body = max(bodies, key=lambda b: (sum(is_op(op, marker) for op in b), -len(b)))
     pairs = sum(is_op(op, marker) for op in body) / per_pair
     return len(body) / pairs, {op: body.count(op) / pairs for op in sorted(set(body))}
 
@@ -423,6 +435,19 @@ def knn_sass(k):
     """The hot kNN loop of ``knn_alpha_kernel<float, k, false, false, false>``
     (two FMUL a pair; the insertion block left out)."""
     return kernel_sass("knn", knn_func(k), marker="FMUL", per_pair=2, cold=True)
+
+
+def naive_func(k, aoas=False):
+    """Mangled-name prefix of the float32 ``naive_kernel<float, k, aoas>``."""
+    return f"_ZN4aidw12naive_kernelIfLi{k}ELb{int(aoas)}EEE"
+
+
+def naive_sass(k, aoas=False):
+    """The float32 naive kernel's two loops: ``(kNN loop, weight loop)``; the
+    kNN loop is the one with two FMUL a pair and no MUFU (the insertion
+    block left out), the weight loop the one with one MUFU.EX2 a pair."""
+    knn = kernel_sass("naive", naive_func(k, aoas), marker="FMUL", per_pair=2, cold=True, exclude="MUFU.EX2")
+    return knn, kernel_sass("naive", naive_func(k, aoas))
 
 
 def main():
@@ -511,6 +536,20 @@ def main():
     check(lds <= 0.5, "the kNN loop issues at most one shared load per two pairs")
     print(f"  knn_launch at 65,536 queries: (threads, S) = {knn_launch(SERVING[0][0], sms)}; at {N_CHECK}: "
           f"{knn_launch(N_CHECK, sms)}")
+    # the naive kernels (B7 SoA, B8 AoaS): both loops read global memory and
+    # no shared memory; SoA fetches a kNN group and a weight group with
+    # 16-byte vector loads (x, y: 4 LDG.128 for 8 pairs; x, y, z: 3 for 4)
+    for aoas in (False, True):
+        tag = f"naive_kernel<float, 10, {'AoaS' if aoas else 'SoA'}>"
+        for what, loop in zip(("kNN", "weight"), naive_sass(10, aoas)):
+            check(loop is not None, f"the SASS of {tag} has a {what} loop")
+            ldg = {op: c for op, c in loop[1].items() if op.startswith("LDG")}
+            shared = {op: c for op, c in loop[1].items() if op.startswith(("LDS", "STS"))}
+            print(f"  {tag} SASS {what} loop: {loop[0]} instructions per pair, LDG {ldg}, MUFU {mufu(loop[1])}, "
+                  f"FFMA {sum(c for op, c in loop[1].items() if op.startswith('FFMA'))}; per pair {loop[1]}")
+            check(ldg and not shared, f"{tag}'s {what} loop reads global memory and no shared memory")
+            if not aoas:
+                check(all(".128" in op for op in ldg), f"{tag}'s {what} loop loads 16-byte vectors")
     # the near and far-cell sweeps (B4, B5): one MUFU.LG2 and one MUFU.EX2 a
     # pair (pow_weight), and none of precise expf/logf's FFMA polynomials
     for kname in ("near_weight", "far_cell"):
@@ -877,6 +916,7 @@ def main():
     far_node_shape_phase(params=params, data=data, queries=queries, time_ms=time_ms)
     serving_phase(dev=dev, params=params, data=data, queries=queries, sync=sync, maxerr=maxerr, time_ms=time_ms,
                   z_tol=z_tol)
+    naive_shape_phase(params=params, data=data, queries=queries, time_ms=time_ms)
     print(f"  total {time.time() - t_start:.1f} s")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1797,6 +1837,7 @@ def dense_phases(*, dev, params, golden, eps, data, queries, sync, maxerr, time_
         aidw_naive_aoas_plain,
         aidw_naive_soa,
         aidw_naive_soa_plain,
+        naive_launch,
     )
     from repro_torch.kernels.aidw_tiled import (
         knn_alpha,
@@ -1896,7 +1937,7 @@ def dense_phases(*, dev, params, golden, eps, data, queries, sync, maxerr, time_
         print(f"  controls {name}: a weight pass without its first tile is off by {e_tile:.3e} (B10) and "
               f"{e_tile_naive:.3e} (B7) relative; a k-best without the nearest point moves {moved} of "
               f"{N_CHECK} alphas", flush=True)
-        check(e_tile > b2_rtol(dtype) and e_tile_naive > b2_rtol(dtype), "the z tolerance catches a lost tile")
+        check(min(e_tile, e_tile_naive) >= 10 * b2_rtol(dtype), "the z tolerance catches a lost tile by 10x")
         check(moved > 0, "the exact alpha check catches a lost nearest point")
         if dtype == f32:
             errs = {"naive_soa": max(maxerr(z7, z7p), maxerr(a7, a7p)),
@@ -2059,6 +2100,8 @@ def dense_phases(*, dev, params, golden, eps, data, queries, sync, maxerr, time_
                 if kname.startswith("knn"):
                     rows[-1].update(zip(("threads", "splits"), knn_launch(
                         n_q, sms, block_q=256, bin_points=sub if kname == "knn_binned" else 0)))
+                elif kname.startswith("naive"):
+                    rows[-1].update(zip(("threads", "splits"), naive_launch(n_q, sms)))
             print(line + ")", flush=True)
     print(f"  tiled SoA beside phase 6 (float32, this call): knn_soa {times['knn_soa', f32]} ms here, "
           f"{phase6_ms['knn_soa_row']} ms in phase 6; weight_soa {times['weight_soa', f32]} ms here, "
@@ -2337,7 +2380,7 @@ def fused_v2_idw_phases(*, dev, params, golden, data, queries, sync, maxerr, tim
     for kname, lib, func in (("weight_soa", "weight", weight_func()),
                              ("weight_aoas", "weight", weight_func(aoas=True)),
                              ("idw", "weight", weight_func(const_ah=True)),
-                             ("naive_soa", "naive", f"_ZN4aidw12naive_kernelIfLi{params.k}ELb0EEE"),
+                             ("naive_soa", "naive", naive_func(params.k)),
                              ("fused", "fused", f"_ZN4aidw12fused_kernelIfLi{params.k}EEE")):
         sass = kernel_sass(lib, func)
         print(f"  {kname} float32 SASS weight loop: " + ("not found" if sass is None else
@@ -2569,6 +2612,67 @@ def far_node_shape_phase(*, params, data, queries, time_ms):
         check(got[rule] <= 1.05 * got[best], f"far_node_launch's pick at n={n} is within 5% of the fastest setting")
         del lay, levels, refs, outs
     print(f"  phase 33: {time.time() - t_phase:.1f} s", flush=True)
+
+
+def naive_shape_phase(*, params, data, queries, time_ms):
+    """Phase 35: B7 and B8 (float32, ``naive.cu``, m = 2^20) timed with CUDA
+    events at S = 1, 2 and 4 threads a query and 128 and 256 threads a block,
+    at 8,192, 65,536 and 2^20 queries, beside the wrapper's choice
+    (``kernels/aidw_naive.py: naive_launch``), which must be the fastest or
+    within 3% of it; every setting gives the wrapper's bits."""
+    import torch
+
+    from repro_torch.core.aidw import tiny_for
+    from repro_torch.core.layouts import soa_to_aoas
+    from repro_torch.engine import build_plan
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.aidw_naive import aidw_naive_aoas, aidw_naive_soa, naive_launch
+    from repro_torch.kernels.aidw_tiled import _alpha_consts
+
+    print("== 35. B7/B8 splits and block sizes (CUDA events, float32, m = 2^20)", flush=True)
+    t_phase = time.time()
+    block_d = 512
+    dxp, dyp, dzp = build_plan(*data(torch.float32), params=params, area=1.0, impl="naive", block_d=block_d).data
+    aoas = soa_to_aoas(dxp, dyp, dzp)
+    m = dxp.shape[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    consts = _alpha_consts(params, 1.0, M_FULL)
+    stream = torch.cuda.current_stream().cuda_stream
+    kw = dict(params=params, area=1.0, m_real=M_FULL, block_q=64, block_d=block_d)
+    kernels = {"naive_soa": ((dxp.data_ptr(), dyp.data_ptr(), dzp.data_ptr()),
+                             lambda qx, qy: aidw_naive_soa(dxp, dyp, dzp, qx, qy, **kw)),
+               "naive_aoas": ((aoas.data_ptr(),), lambda qx, qy: aidw_naive_aoas(aoas, qx, qy, **kw))}
+    for n in (8192, SERVING[0][0], M_FULL):
+        qx, qy = queries(n, 35)
+        rule = naive_launch(n, sms)
+        for kname, (ptrs, wrapper) in kernels.items():
+            fn = _build.entry(f"aidw_{kname}_f32")
+            z_ref, a_ref = wrapper(qx, qy)
+            runs = {}
+            for threads in (128, 256):
+                for splits in (1, 2, 4):
+                    z, a = torch.empty_like(qx), torch.empty_like(qx)
+
+                    def run(threads=threads, splits=splits, z=z, a=a):
+                        _build.check(fn(qx.data_ptr(), qy.data_ptr(), *ptrs, n, m, block_d, params.k, threads,
+                                        splits, *consts, float(params.exact_hit_eps), tiny_for(torch.float32),
+                                        z.data_ptr(), a.data_ptr(), stream), f"{kname} launch")
+
+                    run()
+                    check(torch.equal(z, z_ref) and torch.equal(a, a_ref),
+                          f"{kname} with {threads} threads and S = {splits} gives the wrapper's bits (n={n})")
+                    runs[threads, splits] = run
+            # 2^20 queries take about a second a launch: 3 rounds, no warm-up
+            if n == M_FULL:
+                got = time_in_turns(lambda fn_, reps: time_ms(fn_, reps, warmup=0), runs, 1, rounds=3)
+            else:
+                got = time_in_turns(time_ms, runs, 3)
+            best = min(got, key=got.get)
+            print(f"  {kname} n={n}: " + ", ".join(f"{t} threads S={sp} {ms} ms" for (t, sp), ms in got.items())
+                  + f"; fastest {best}; naive_launch picks {rule} ({sms} SMs), {got[rule] / got[best]:.4f}x the "
+                  "fastest; all bitwise equal", flush=True)
+            check(got[rule] <= 1.03 * got[best], f"naive_launch's pick for {kname} at n={n} is within 3% of the fastest")
+    print(f"  phase 35: {time.time() - t_phase:.1f} s", flush=True)
 
 
 def serving_phase(*, dev, params, data, queries, sync, maxerr, time_ms, z_tol):

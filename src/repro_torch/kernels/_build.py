@@ -52,8 +52,8 @@ ENTRY_POINTS = {
     **{f"aidw_weight_aoas_{t}": ("weight", [_P] * 4 + [_I] * 4 + [_D, _D, _P, _P]) for t in ("f32", "f64")},
     **{f"aidw_idw_{t}": ("weight", [_P] * 5 + [_I] * 4 + [_D] * 3 + [_P, _P]) for t in ("f32", "f64")},
     **{f"aidw_fused_{t}": ("fused", [_P] * 5 + [_I] * 5 + [_D] * 11 + [_P] * 3) for t in ("f32", "f64")},
-    **{f"aidw_naive_soa_{t}": ("naive", [_P] * 5 + [_I] * 5 + [_D] * 11 + [_P] * 3) for t in ("f32", "f64")},
-    **{f"aidw_naive_aoas_{t}": ("naive", [_P] * 3 + [_I] * 5 + [_D] * 11 + [_P] * 3) for t in ("f32", "f64")},
+    **{f"aidw_naive_soa_{t}": ("naive", [_P] * 5 + [_I] * 6 + [_D] * 11 + [_P] * 3) for t in ("f32", "f64")},
+    **{f"aidw_naive_aoas_{t}": ("naive", [_P] * 3 + [_I] * 6 + [_D] * 11 + [_P] * 3) for t in ("f32", "f64")},
     **{f"aidw_near_weight_{t}": ("near", [_P] * 7 + [_I] * 5 + [_D] + [_P] * 5) for t in ("f32", "f64")},
     **{f"aidw_far_cell_{t}": ("far", [_P] * 10 + [_I] * 5 + [_D] + [_P] * 3) for t in ("f32", "f64")},
     **{f"aidw_far_node_{t}": ("far_node", [_P] * 12 + [_I] * 7 + [_D] + [_P] * 3) for t in ("f32", "f64")},

@@ -7,9 +7,11 @@ version beside it.
 * :func:`aidw_naive_aoas` - the port of
   ``repro/kernels/aidw_naive.py:_naive_kernel_aoas``, on ``(m, 4)`` structs.
 
-Each thread takes one query, reads every data point for the k-best and
-alpha, then reads them all again for the weights, summed per tile of
-``block_d`` points with the tile sums folded in data order (the order of
+S threads take one query, one warp-aligned part each (:func:`naive_launch`):
+they read every data point from global memory for the k-best and alpha,
+``KNN_GROUP`` points a step dealt out between the parts (:func:`naive_part`),
+then read them all again for the weights, each tile of ``block_d`` points
+summed by one part, the tile sums folded in data order (the order of
 ``csrc/weight.cu``): alpha and z are then the tiled kernels' bits.
 
 A wrapper given CPU tensors runs the plain version (the CPU path); given
@@ -28,17 +30,49 @@ from repro_torch.core.aidw import AIDWParams, tiny_for
 from repro_torch.kernels import _build
 from repro_torch.kernels._common import alpha_from_best, merge_k_best, pow_weight, sq_dist_tile
 from repro_torch.kernels.aidw_tiled import (
+    KNN_GROUP,
     _alpha_consts,
     _check_float,
     _on_card,
+    _sm_count,
     _suffix,
     aoas_columns,
     check_aoas,
     check_k,
+    check_soa_aligned,
 )
 
-_NAIVE_THREADS = 256
 CHUNK_BYTES = 1 << 30  # one (chunk, m) tensor of the plain version
+# naive_launch lets threads share a query while a batch has fewer threads
+# than this per SM, at most four a query
+_NAIVE_SPLIT_THREADS_PER_SM = 8192
+
+
+def naive_launch(n: int, sms: int) -> tuple[int, int]:
+    """``(threads, S)`` of a launch of the naive kernel (``csrc/naive.cu``)
+    for a batch of ``n`` queries on a card with ``sms`` multiprocessors: S
+    threads of a CUDA block share a query, one warp-aligned part each, which
+    split its points in the kNN pass and its tiles in the weight pass.  S
+    doubles, up to 4, while the batch has fewer than
+    ``_NAIVE_SPLIT_THREADS_PER_SM`` threads per SM: the parts' warps hide
+    the latency of the global loads.  A batch whose threads give every SM a
+    256-thread block takes 256 threads a block, a smaller one 128, as
+    ``weight_launch`` does.  ``chip_smoke.py`` phase 35 times S = 1, 2, 4 at
+    128 and 256 threads a block at 8,192, 65,536 and 2^20 queries.  A
+    query's alpha and z do not depend on it."""
+    splits = 1
+    while splits < 4 and n * splits < _NAIVE_SPLIT_THREADS_PER_SM * sms:
+        splits *= 2
+    return (256 if n * splits >= 256 * sms else 128), splits
+
+
+def naive_part(m: int, splits: int, part: int) -> torch.Tensor:
+    """The points of a row of ``m`` that part ``part`` of ``splits`` walks in
+    the naive kernel's kNN pass (``aidw_common.cuh: knn_rows``): the groups
+    ``g = part, part + splits, ...`` of ``KNN_GROUP`` consecutive points,
+    the short last group included."""
+    j = torch.arange(m)
+    return j[(j // KNN_GROUP) % splits == part]
 
 
 def aidw_naive_soa_plain(dx, dy, dz, qx, qy, *, params: AIDWParams, area: float, m_real: int, block_d: int):
@@ -81,7 +115,8 @@ def _launch(entry: str, pointers, n: int, m: int, block_d: int, qx, params: AIDW
     check_k(entry, params.k)
     z, alpha = torch.empty_like(qx), torch.empty_like(qx)
     fn = _build.entry(f"aidw_{entry}_{_suffix(qx.dtype)}")
-    err = fn(*pointers, n, m, block_d, params.k, _NAIVE_THREADS, *_alpha_consts(params, area, m_real),
+    threads, splits = naive_launch(n, _sm_count(qx.device.index))
+    err = fn(*pointers, n, m, block_d, params.k, threads, splits, *_alpha_consts(params, area, m_real),
              float(params.exact_hit_eps), tiny_for(qx.dtype), z.data_ptr(), alpha.data_ptr(),
              torch.cuda.current_stream(qx.device).cuda_stream)
     _build.check(err, f"{entry} launch")
@@ -103,6 +138,7 @@ def aidw_naive_soa(dx, dy, dz, qx, qy, *, params: AIDWParams, area: float, m_rea
     if not _on_card("aidw_naive_soa", dx, dy, dz, qx, qy):
         return aidw_naive_soa_plain(dx, dy, dz, qx, qy, params=params, area=area, m_real=m_real, block_d=block_d)
     _check_float("aidw_naive_soa", qx, qy, dx, dy, dz)
+    check_soa_aligned("aidw_naive_soa", dx, dy, dz)
     ptrs = (qx.data_ptr(), qy.data_ptr(), dx.data_ptr(), dy.data_ptr(), dz.data_ptr())
     return _launch("naive_soa", ptrs, n, m, block_d, qx, params, area, m_real)
 

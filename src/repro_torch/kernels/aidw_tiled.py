@@ -165,6 +165,16 @@ def check_aoas(name: str, data) -> None:
         raise ValueError(f"{name}: AoaS data must be aligned to {4 * data.element_size()} bytes")
 
 
+def check_soa_aligned(name: str, *tensors) -> None:
+    """A kernel that reads SoA data with 16-byte vector loads from global
+    memory (``csrc/naive.cu``) needs each array's base aligned to 16 bytes:
+    a slice that starts inside a vector is refused."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: SoA data must be aligned to 16 bytes, got an array at offset "
+                             f"{t.data_ptr() % 16} (a slice of a larger tensor?)")
+
+
 def aoas_columns(data):
     """The x, y, z columns of ``(m, 4)`` structs as contiguous ``(m,)`` tensors."""
     return tuple(data[:, c].contiguous() for c in range(3))

@@ -224,8 +224,8 @@ __device__ __forceinline__ T knn_group(T px, T py, const T (&x)[G], const T (&y)
   return gmin;
 }
 
-// G consecutive values from 16-byte aligned shared memory: G / 4 float4 or
-// G / 2 double2 loads.
+// G consecutive values from 16-byte aligned memory (a staged shared array,
+// or naive.cu's global arrays): G / 4 float4 or G / 2 double2 loads.
 template <int G>
 __device__ __forceinline__ void load_group(const float* s, float (&v)[G]) {
 #pragma unroll
@@ -279,6 +279,94 @@ __device__ __forceinline__ T knn_span(T px, T py, const T* sx, const T* sy, int 
     if constexpr (MIN) run = min_num(run, v);
   }
   return run;
+}
+
+// Data read straight from global memory, through L1 and L2, with no staging
+// (naive.cu): the SoA arrays x, y, z, each 16-byte aligned (the wrappers
+// check it), or the AoaS (x, y, z, 0) struct array d.  fetch_xy and
+// fetch_xyz take U consecutive points from j: SoA with 16-byte vector loads
+// where U points are whole vectors and j is a multiple of U (the kNN walk's
+// groups and weight_tile's start at multiples of their size), else one
+// value a load; AoaS one struct a point (aoas.cuh: load_xy, load_xyz).
+template <typename T>
+struct SoaRows {
+  const T* x;
+  const T* y;
+  const T* z;
+};
+
+template <typename T>
+struct AoasRows {
+  const T* d;
+};
+
+template <typename T, int U>
+__device__ __forceinline__ void fetch_xy(const SoaRows<T>& r, int j, T (&x)[U], T (&y)[U]) {
+  if constexpr (U * sizeof(T) % 16 == 0) {
+    load_group(r.x + j, x);
+    load_group(r.y + j, y);
+  } else {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      x[u] = r.x[j + u];
+      y[u] = r.y[j + u];
+    }
+  }
+}
+
+template <typename T, int U>
+__device__ __forceinline__ void fetch_xyz(const SoaRows<T>& r, int j, T (&x)[U], T (&y)[U], T (&z)[U]) {
+  fetch_xy(r, j, x, y);
+  if constexpr (U * sizeof(T) % 16 == 0) {
+    load_group(r.z + j, z);
+  } else {
+#pragma unroll
+    for (int u = 0; u < U; ++u) z[u] = r.z[j + u];
+  }
+}
+
+template <typename T, int U>
+__device__ __forceinline__ void fetch_xy(const AoasRows<T>& r, int j, T (&x)[U], T (&y)[U]) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) load_xy(r.d, j + u, x[u], y[u]);
+}
+
+template <typename T, int U>
+__device__ __forceinline__ void fetch_xyz(const AoasRows<T>& r, int j, T (&x)[U], T (&y)[U], T (&z)[U]) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) load_xyz(r.d, j + u, x[u], y[u], z[u]);
+}
+
+// knn_span's walk on rows in global memory (naive.cu) for part `part` of
+// the `parts` threads that share a query: the groups g = part, part +
+// parts, ... of kKnnGroup consecutive points (group g is points g
+// kKnnGroup onwards), each fetched with fetch_xy (SoA: two or four vector
+// loads of x and as many of y) and folded into the k-best through
+// knn_group behind one test against the k-th best, two groups a loop step;
+// the short last group, when m is not a multiple of kKnnGroup, point by
+// point by the part whose turn it is.  Every point is taken once, and the
+// parts' k-bests merged (kbest_insert) are the k-best of the whole row,
+// since the k-best set does not depend on the order of the points
+// (kernels/aidw_naive.py: naive_part mirrors the cut).
+template <typename T, int K, typename Rows>
+__device__ __forceinline__ void knn_rows(T px, T py, const Rows& rows, int m, int part, int parts, T (&best)[K]) {
+  constexpr int G = kKnnGroup;
+  const int whole = m / G;
+  int g = part;
+#pragma unroll 2
+  for (; g < whole; g += parts) {
+    T x[G], y[G];
+    fetch_xy(rows, g * G, x, y);
+    knn_group<T, K, G, true, false>(px, py, x, y, best);
+  }
+  if (g == whole) {  // the short last group, if any, is this part's
+#pragma unroll 1
+    for (int j = whole * G; j < m; ++j) {
+      T x[1], y[1];
+      fetch_xy(rows, j, x, y);
+      knn_group<T, K, 1, true, false>(px, py, x, y, best);
+    }
+  }
 }
 
 // alpha of a k-best set: r_obs = mean of sqrt(best), summed in ascending
@@ -360,28 +448,55 @@ __device__ __forceinline__ void weight_group(T px, T py, T neg_ah, const T (&x)[
   }
 }
 
+// The U points j..j + U - 1 of a weight loop from a point loader,
+// point(j, x, y, z) one at a time; the global rows above overload it.
+template <typename T, int U, typename Point>
+__device__ __forceinline__ void fetch_xyz(const Point& point, int j, T (&x)[U], T (&y)[U], T (&z)[U]) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) point(j + u, x[u], y[u], z[u]);
+}
+
+// Whether weight_tile starts its groups at multiples of kWeightGroup for
+// this loader: SoA global rows, whose groups are vector loads.
+template <typename Point>
+constexpr bool kAlignedGroups = false;
+template <typename T>
+constexpr bool kAlignedGroups<SoaRows<T>> = true;
+
 // One plan tile of the weight sweep for one query: points t0 <= j < t1,
-// fetched by point(j, x, y, z), in groups of kWeightGroup and the rest one
-// by one, summed into the tile's sum(w) and sum(w z), which are then folded
-// into the running totals (the tile boundaries are the plan's block_d).
-// The one tile loop of every exact sweep: weight.cu reads staged {x, y, z,
-// pad} vectors, fused.cu SoA shared arrays, naive.cu global memory, and all
-// keep one set of bits.
+// fetched with fetch_xyz (a point loader, or naive.cu's global rows), in
+// groups of kWeightGroup and the rest one by one, summed into the tile's
+// sum(w) and sum(w z), which are then folded into the running totals (the
+// tile boundaries are the plan's block_d).  For SoA global rows the groups
+// start at the first multiple of kWeightGroup, the points before it one by
+// one, so that a group is three vector loads.  The one tile loop of every
+// exact sweep: weight.cu reads staged {x, y, z, pad} vectors, fused.cu SoA
+// shared arrays, naive.cu global memory, and all keep one set of bits
+// (weight_group's sums do not depend on where the groups start).
 template <typename T, typename Point>
 __device__ __forceinline__ void weight_tile(T px, T py, T neg_ah, int t0, int t1, Point point, T tiny, T& sum_w,
                                             T& sum_wz, T& min_d2, T& hit_z) {
+  constexpr int G = kWeightGroup;
   T tile_w = T(0), tile_wz = T(0);
   int j = t0;
-  const int grp = t1 - (t1 - t0) % kWeightGroup;
-  for (; j < grp; j += kWeightGroup) {
-    T x[kWeightGroup], y[kWeightGroup], z[kWeightGroup];
-#pragma unroll
-    for (int u = 0; u < kWeightGroup; ++u) point(j + u, x[u], y[u], z[u]);
+  if constexpr (kAlignedGroups<Point>) {
+    const int head = min(t1, (t0 + G - 1) / G * G);
+#pragma unroll 1
+    for (; j < head; ++j) {
+      T x[1], y[1], z[1];
+      fetch_xyz(point, j, x, y, z);
+      weight_group(px, py, neg_ah, x, y, z, tiny, tile_w, tile_wz, min_d2, hit_z);
+    }
+  }
+  const int grp = t1 - (t1 - j) % G;
+  for (; j < grp; j += G) {
+    T x[G], y[G], z[G];
+    fetch_xyz(point, j, x, y, z);
     weight_group(px, py, neg_ah, x, y, z, tiny, tile_w, tile_wz, min_d2, hit_z);
   }
   for (; j < t1; ++j) {
     T x[1], y[1], z[1];
-    point(j, x[0], y[0], z[0]);
+    fetch_xyz(point, j, x, y, z);
     weight_group(px, py, neg_ah, x, y, z, tiny, tile_w, tile_wz, min_d2, hit_z);
   }
   sum_w = add_rn(sum_w, tile_w);

@@ -135,7 +135,7 @@ def test_exact_weights_go_through_pow_weight():
     group = re.search(r"void weight_group\(.*?\n\}", header, re.S).group(0)
     assert "pow_weight(neg_ah, d2[u], tiny)" in group
     tile = re.search(r"void weight_tile\(.*?\n\}", header, re.S).group(0)
-    assert tile.count("weight_group(") == 2  # the groups of kWeightGroup and the rest
+    assert tile.count("weight_group(") == 3  # the head to a multiple of kWeightGroup, the groups, the rest
     for name in ("weight.cu", "naive.cu", "fused.cu"):
         src = _code(name)
         assert not re.search(r"\b(exp_p|log_p|expf|logf|exp2f|log2f|__expf|__logf|exp|log|pow_weight)\s*\(", src), name
