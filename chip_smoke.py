@@ -16,9 +16,12 @@ in order (a failed check raises, and the script exits nonzero):
    pair and no FFMA, of the float32 quadtree loop (B6), which must take one
    MUFU.LG2, one MUFU.EX2 and one MUFU.RCP a pair and no FFMA, and of the
    float32 kNN walk's hot loop, which must hold no FFMA and at most one
-   shared load per two pairs, and of the float32 naive kernels' (B7, B8)
+   shared load per two pairs, of the float32 naive kernels' (B7, B8)
    kNN and weight loops, SoA and AoaS, which must read global memory and no
-   shared memory and, in SoA, read their points with 16-byte vector loads;
+   shared memory and, in SoA, read their points with 16-byte vector loads,
+   and of the float32 fused kernel's (B11) kNN loop, held as the kNN walk's,
+   and weight loop, which must take at most two MUFU ops a pair and one
+   LDS.128 a point;
 2. each kernel against its plain PyTorch version on the card, float32 and
    float64, at the shapes the main path gives it (m = 2^20): B1 and B3
    alpha bit for bit, with a control that a walk losing one split part
@@ -102,12 +105,15 @@ in order (a failed check raises, and the script exits nonzero):
     float32 and float64, m = 2^20, 2,048 queries: B11 (``fused.cu``), B12
     (``knn.cu`` with the threshold-skip vote) and B13 (``weight.cu`` at one
     alpha); alpha exactly, z within 64 ulps, merges equal, with controls
-    that a fused sweep without its first tile, a threshold-skip pass that
-    never merges after tile 0 and an IDW sweep at alpha / 2 + 1 ulp fail;
-26. bits on the card: fused equals tiled SoA, tiled_v2 alpha equals B1 and
-    its z B2 on it, idw equals ``weight_sweep`` at a filled alpha / 2; and
-    k = 7 through ``knn.cu``, ``naive.cu`` and ``fused.cu`` against the plain
-    versions;
+    that a fused sweep without its first tile, a fused k-best that loses one
+    part of four (by 10x), a threshold-skip pass that never merges after
+    tile 0 and an IDW sweep at alpha / 2 + 1 ulp fail;
+26. bits on the card: fused equals tiled SoA, also at S = 1, 2 and 4
+    threads a query and at a plan tile of 4,096 float32 or 2,048 float64
+    points (past the first design's 48 KiB of shared memory), tiled_v2 alpha
+    equals B1 and its z B2 on it, idw equals ``weight_sweep`` at a filled
+    alpha / 2; and k = 7 through ``knn.cu``, ``naive.cu`` and ``fused.cu``
+    against the plain versions;
 27. the golden fixture for fused, tiled_v2 and chunked (brute and grid),
     float32 and float64;
 28. the first serving batch of ``aidw-pod-1m`` (65,536 queries, seed 1)
@@ -116,7 +122,7 @@ in order (a failed check raises, and the script exits nonzero):
     sampled queries held against a float64 brute-force reference (idw
     against a float64 ``idw_reference``);
 29. B11-B13 timed with CUDA events at that shape, float32 and float64, with
-    their bounds;
+    their bounds, and B11 beside the B1 + B2 pair it fuses;
 30. B2 (float32) timed with CUDA events at 128 and 256 threads a block at
     8,192, 65,536 and 2^20 queries, beside the wrapper's choice
     (``kernels/aidw_tiled.py: weight_launch``), both giving the same bits;
@@ -150,6 +156,11 @@ in order (a failed check raises, and the script exits nonzero):
     and 4 threads a query and 128 and 256 threads a block, at 8,192, 65,536
     and 2^20 queries, beside the wrapper's choice
     (``kernels/aidw_naive.py: naive_launch``), which must be the fastest or
+    within 3%, every setting giving the wrapper's bits;
+36. B11 (float32, ``fused.cu``) timed with CUDA events at S = 1, 2 and 4
+    threads a query and 128 and 256 threads a block, at 8,192, 65,536 and
+    2^20 queries (the median of 5 rounds), beside the wrapper's choice
+    (``kernels/aidw_fused.py: fused_launch``), which must be the fastest or
     within 3%, every setting giving the wrapper's bits.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
@@ -450,6 +461,20 @@ def naive_sass(k, aoas=False):
     return knn, kernel_sass("naive", naive_func(k, aoas))
 
 
+def fused_func(k):
+    """Mangled-name prefix of the float32 ``fused_kernel<float, k>``."""
+    return f"_ZN4aidw12fused_kernelIfLi{k}EEE"
+
+
+def fused_sass(k):
+    """The float32 fused kernel's two loops, as ``naive_sass`` reads B7's:
+    ``(kNN loop, weight loop)``; the kNN loop is the one with two FMUL a
+    pair and no MUFU (the insertion block left out), the weight loop the one
+    with one MUFU.EX2 a pair."""
+    knn = kernel_sass("fused", fused_func(k), marker="FMUL", per_pair=2, cold=True, exclude="MUFU.EX2")
+    return knn, kernel_sass("fused", fused_func(k))
+
+
 def main():
     import torch
 
@@ -468,6 +493,7 @@ def main():
     from repro_torch.engine import build_plan, execute, execute_with_stats
     from repro_torch.engine.execute import _grid_layout
     from repro_torch.kernels import _build
+    from repro_torch.kernels.aidw_fused import fused_launch
     from repro_torch.kernels.aidw_tiled import (
         knn_alpha,
         knn_alpha_plain,
@@ -550,6 +576,25 @@ def main():
             check(ldg and not shared, f"{tag}'s {what} loop reads global memory and no shared memory")
             if not aoas:
                 check(all(".128" in op for op in ldg), f"{tag}'s {what} loop loads 16-byte vectors")
+    # the fused kernel (B11): its kNN loop is knn.cu's (no FFMA, one 16-byte
+    # shared load per two pairs or fewer), its weight loop weight.cu's (at
+    # most the two MUFU ops a pair the function needs, one LDS.128 a point)
+    b11_knn, b11_weight = fused_sass(10)
+    tag = "fused_kernel<float, 10>"
+    check(b11_knn is not None and b11_weight is not None, f"the SASS of {tag} has a kNN loop and a weight loop")
+    ffma = sum(c for op, c in b11_knn[1].items() if op.startswith("FFMA"))
+    lds = sum(c for op, c in b11_knn[1].items() if op.startswith("LDS"))
+    print(f"  {tag} SASS kNN loop: {b11_knn[0]} instructions per pair, FFMA {ffma}, LDS {lds} per pair; "
+          f"per pair {b11_knn[1]}")
+    check(ffma == 0 and lds <= 0.5, f"{tag}'s kNN loop forms no FFMA and issues at most one shared load per two pairs")
+    lds = {op: c for op, c in b11_weight[1].items() if op.startswith("LDS")}
+    print(f"  {tag} SASS weight loop: {b11_weight[0]} instructions per pair, MUFU per pair {mufu(b11_weight[1])}, "
+          f"LDS {lds}; per pair {b11_weight[1]}")
+    check(sum(mufu(b11_weight[1]).values()) <= MUFU_PER_PAIR and set(lds) == {"LDS.128"} and lds["LDS.128"] <= 1,
+          f"{tag}'s weight loop takes at most {MUFU_PER_PAIR} MUFU ops a pair and one LDS.128 a point")
+    print(f"  fused_launch at 65,536 queries: (threads, S) = "
+          f"{fused_launch(SERVING[0][0], sms, 512, torch.float32)}; at {N_CHECK}: "
+          f"{fused_launch(N_CHECK, sms, 512, torch.float32)}")
     # the near and far-cell sweeps (B4, B5): one MUFU.LG2 and one MUFU.EX2 a
     # pair (pow_weight), and none of precise expf/logf's FFMA polynomials
     for kname in ("near_weight", "far_cell"):
@@ -917,6 +962,7 @@ def main():
     serving_phase(dev=dev, params=params, data=data, queries=queries, sync=sync, maxerr=maxerr, time_ms=time_ms,
                   z_tol=z_tol)
     naive_shape_phase(params=params, data=data, queries=queries, time_ms=time_ms)
+    fused_shape_phase(params=params, data=data, queries=queries, time_ms=time_ms)
     print(f"  total {time.time() - t_start:.1f} s")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2139,9 +2185,19 @@ def fused_v2_idw_phases(*, dev, params, golden, data, queries, sync, maxerr, tim
     from repro_torch.engine import build_plan, execute, execute_with_stats
     from repro_torch.kernels import _build
     from repro_torch.kernels._common import alpha_from_best, merge_k_best, sq_dist_tile
-    from repro_torch.kernels.aidw_fused import aidw_fused_soa, aidw_fused_soa_plain
+    from repro_torch.core.aidw import tiny_for
+    from repro_torch.kernels.aidw_fused import aidw_fused_soa, aidw_fused_soa_plain, fused_launch, fused_part
     from repro_torch.kernels.aidw_naive import aidw_naive_soa, aidw_naive_soa_plain
-    from repro_torch.kernels.aidw_tiled import knn_alpha, knn_alpha_plain, knn_launch, weight_sweep
+    from repro_torch.kernels.aidw_tiled import (
+        _alpha_consts,
+        aidw_tiled_soa,
+        knn_alpha,
+        knn_alpha_plain,
+        knn_launch,
+        knn_stage_points,
+        weight_sweep,
+        weight_sweep_plain,
+    )
     from repro_torch.kernels.aidw_tiled_v2 import knn_alpha_v2, knn_alpha_v2_plain
     from repro_torch.kernels.idw_tiled import idw_tiled_soa, idw_tiled_soa_plain
 
@@ -2210,6 +2266,17 @@ def fused_v2_idw_phases(*, dev, params, golden, data, queries, sync, maxerr, tim
         a_t0 = tile0_alpha(qx, qy, dxp, dyp, params)
         moved = int((a_t0 != a12).sum())
         idw_up_same = torch.equal(z13_up, z13)
+        # B11's split: a k-best that loses the points of the last of four
+        # parts of every kNN stage (fused_part), and z at its alpha
+        gone = torch.zeros_like(dxp, dtype=torch.bool)
+        gone[fused_part(dxp.shape[0], knn_stage_points(dtype), 4, 3).to(dev)] = True
+        a_part = knn_alpha_plain(qx, qy, torch.where(gone, sent, dxp)[None], torch.where(gone, sent, dyp)[None],
+                                 block_q=block_q, tile_d=block_d, **kw)
+        z_part = weight_sweep_plain(qx, qy, a_part * 0.5, dxp, dyp, dzp, tile_d=block_d, eps=hit_eps)
+        moved_part, e_part = int((a_part != a11p).sum()), rel(z_part, z11p)
+        print(f"  B11 control {name}: a k-best without part 4 of 4 of every stage moves {moved_part} of {N_CHECK} "
+              f"alphas and z by {e_part:.3e} relative, {e_part / b2_rtol(dtype):.1f}x the tolerance", flush=True)
+        check(moved_part > 0 and e_part > 10 * b2_rtol(dtype), "B11's checks catch a k-best that loses a part by 10x")
         print(f"  controls {name}: a fused sweep without its first tile is off by {e_cut:.3e} relative; a pass "
               f"that never merges after tile 0 moves {moved} of {N_CHECK} alphas and counts "
               f"{qx.shape[0] // block_q} merges against {int(m12.sum())}; a sweep at alpha / 2 + 1 ulp gives "
@@ -2221,7 +2288,7 @@ def fused_v2_idw_phases(*, dev, params, golden, data, queries, sync, maxerr, tim
             errs = {"fused": max(maxerr(z11, z11p), maxerr(a11, a11p)), "knn_v2": maxerr(a12, a12p),
                     "idw": maxerr(z13, z13p)}
         check_out[dtype] = (qx, qy, (dxp, dyp, dzp), z11, a11, a12, m12, z13)
-        del z11p, a11p, a12p, z13p, z_cut
+        del z11p, a11p, a12p, z13p, z_cut, z_part
     print(f"  phase 25: {time.time() - t_phase:.1f} s", flush=True)
 
     # --------------------------------------------------- 26. bits on the card
@@ -2235,6 +2302,30 @@ def fused_v2_idw_phases(*, dev, params, golden, data, queries, sync, maxerr, tim
                 "tiled_v2 alpha": torch.equal(a12, a1)}
         print(f"  {dtname(dtype)}: {same}")
         check(all(same.values()), f"fused and tiled_v2 give tiled SoA's bits ({dtname(dtype)})")
+        # B11 at S = 1, 2 and 4 threads a query (256 threads a block), and at
+        # a plan tile past the first design's 48 KiB cap (4,096 float32 or
+        # 2,048 float64 points: 64 KiB of {x, y, z, pad}) through the wrapper
+        # (fused_launch) and at S = 2 (two such tiles a round)
+        fn = _build.entry("aidw_fused_f32" if dtype == f32 else "aidw_fused_f64")
+        consts = _alpha_consts(params, 1.0, M_FULL)
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def fused_at(tile, splits):
+            z, a = torch.empty_like(qx), torch.empty_like(qx)
+            _build.check(fn(qx.data_ptr(), qy.data_ptr(), dxp.data_ptr(), dyp.data_ptr(), dzp.data_ptr(), qx.shape[0],
+                            dxp.shape[0], tile, params.k, 256, splits, *consts, float(hit_eps), tiny_for(dtype),
+                            z.data_ptr(), a.data_ptr(), stream), "fused launch")
+            return z, a
+
+        big = 4096 if dtype == f32 else 2048
+        z_big = weight_sweep(qx, qy, a1 * 0.5, dxp, dyp, dzp, tile_d=big, eps=hit_eps)
+        runs = {f"S={sp}": (fused_at(block_d, sp), z2) for sp in (1, 2, 4)}
+        runs[f"block_d {big} {fused_launch(qx.shape[0], sms, big, dtype)}"] = (
+            aidw_fused_soa(dxp, dyp, dzp, qx, qy, block_q=block_q, block_d=big, **kw), z_big)
+        runs[f"block_d {big} S=2"] = (fused_at(big, 2), z_big)
+        s_same = {tag: torch.equal(a, a1) and torch.equal(z, z_ref) for tag, ((z, a), z_ref) in runs.items()}
+        print(f"  fused == tiled SoA {dtname(dtype)} by launch shape: {s_same}", flush=True)
+        check(all(s_same.values()), f"B11 gives tiled SoA's bits at every S and at block_d {big} ({dtname(dtype)})")
         p7 = type(params)(k=7, area=1.0)
         k7 = dict(params=p7, area=1.0, m_real=M_FULL)
         a_k = knn_alpha(qx, qy, dxp[None], dyp[None], block_q=block_q, tile_d=block_d, **k7)
@@ -2375,13 +2466,20 @@ def fused_v2_idw_phases(*, dev, params, golden, data, queries, sync, maxerr, tim
                                  ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
                 if kname == "knn_v2":
                     rows[-1].update(zip(("threads", "splits"), knn_launch(n_q, sms, block_q=block_q, vote=True)))
+                elif kname == "fused":
+                    rows[-1].update(zip(("threads", "splits"), fused_launch(n_q, sms, block_d, dtype)))
             print(line + ")", flush=True)
+            if kname == "fused":
+                # the two launches it replaces, B1 (shared row) then B2, on the same inputs
+                pair_ms = time_ms(lambda: aidw_tiled_soa(dxp, dyp, dzp, qx, qy, **fk), 3 if dtype == f32 else 1)
+                print(f"  fused {name} beside B1 + B2 (aidw_tiled_soa, this call): {ms} ms against {pair_ms} ms, "
+                      f"{ms / pair_ms:.4f}x; {fused_launch(n_q, sms, block_d, dtype)} (threads, S)", flush=True)
     # the per-pair weight loop of each float32 sweep, from the SASS
     for kname, lib, func in (("weight_soa", "weight", weight_func()),
                              ("weight_aoas", "weight", weight_func(aoas=True)),
                              ("idw", "weight", weight_func(const_ah=True)),
                              ("naive_soa", "naive", naive_func(params.k)),
-                             ("fused", "fused", f"_ZN4aidw12fused_kernelIfLi{params.k}EEE")):
+                             ("fused", "fused", fused_func(params.k))):
         sass = kernel_sass(lib, func)
         print(f"  {kname} float32 SASS weight loop: " + ("not found" if sass is None else
               f"{sass[0]} instructions per pair, MUFU per pair {mufu(sass[1])}"))
@@ -2673,6 +2771,62 @@ def naive_shape_phase(*, params, data, queries, time_ms):
                   "fastest; all bitwise equal", flush=True)
             check(got[rule] <= 1.03 * got[best], f"naive_launch's pick for {kname} at n={n} is within 3% of the fastest")
     print(f"  phase 35: {time.time() - t_phase:.1f} s", flush=True)
+
+
+def fused_shape_phase(*, params, data, queries, time_ms):
+    """Phase 36: B11 (float32, ``fused.cu``, m = 2^20) timed with CUDA events
+    at S = 1, 2 and 4 threads a query and 128 and 256 threads a block, at
+    8,192, 65,536 and 2^20 queries (each setting the median of 5 rounds),
+    beside the wrapper's choice (``kernels/aidw_fused.py: fused_launch``),
+    which must be the fastest or within 3% of it; every setting gives the
+    wrapper's bits."""
+    import torch
+
+    from repro_torch.core.aidw import tiny_for
+    from repro_torch.engine import build_plan
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.aidw_fused import aidw_fused_soa, fused_launch
+    from repro_torch.kernels.aidw_tiled import _alpha_consts
+
+    print("== 36. B11 splits and block sizes (CUDA events, float32, m = 2^20)", flush=True)
+    t_phase = time.time()
+    block_d = 512
+    dxp, dyp, dzp = build_plan(*data(torch.float32), params=params, area=1.0, impl="fused", block_d=block_d).data
+    m = dxp.shape[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    consts = _alpha_consts(params, 1.0, M_FULL)
+    stream = torch.cuda.current_stream().cuda_stream
+    fn = _build.entry("aidw_fused_f32")
+    for n in (8192, SERVING[0][0], M_FULL):
+        qx, qy = queries(n, 36)
+        rule = fused_launch(n, sms, block_d, torch.float32)
+        z_ref, a_ref = aidw_fused_soa(dxp, dyp, dzp, qx, qy, params=params, area=1.0, m_real=M_FULL, block_q=256,
+                                      block_d=block_d)
+        runs = {}
+        for threads in (128, 256):
+            for splits in (1, 2, 4):
+                z, a = torch.empty_like(qx), torch.empty_like(qx)
+
+                def run(threads=threads, splits=splits, z=z, a=a):
+                    _build.check(fn(qx.data_ptr(), qy.data_ptr(), dxp.data_ptr(), dyp.data_ptr(), dzp.data_ptr(), n, m,
+                                    block_d, params.k, threads, splits, *consts, float(params.exact_hit_eps),
+                                    tiny_for(torch.float32), z.data_ptr(), a.data_ptr(), stream), "fused launch")
+
+                run()
+                check(torch.equal(z, z_ref) and torch.equal(a, a_ref),
+                      f"fused with {threads} threads and S = {splits} gives the wrapper's bits (n={n})")
+                runs[threads, splits] = run
+        # 2^20 queries take about a second a launch: one launch a round, no warm-up
+        if n == M_FULL:
+            got = time_in_turns(lambda fn_, reps: time_ms(fn_, reps, warmup=0), runs, 1)
+        else:
+            got = time_in_turns(time_ms, runs, 3)
+        best = min(got, key=got.get)
+        print(f"  fused n={n}: " + ", ".join(f"{t} threads S={sp} {ms} ms" for (t, sp), ms in got.items())
+              + f"; fastest {best}; fused_launch picks {rule} ({sms} SMs), {got[rule] / got[best]:.4f}x the "
+              "fastest; all bitwise equal", flush=True)
+        check(got[rule] <= 1.03 * got[best], f"fused_launch's pick at n={n} is within 3% of the fastest")
+    print(f"  phase 36: {time.time() - t_phase:.1f} s", flush=True)
 
 
 def serving_phase(*, dev, params, data, queries, sync, maxerr, time_ms, z_tol):

@@ -51,7 +51,7 @@ ENTRY_POINTS = {
        for t in ("f32", "f64")},
     **{f"aidw_weight_aoas_{t}": ("weight", [_P] * 4 + [_I] * 4 + [_D, _D, _P, _P]) for t in ("f32", "f64")},
     **{f"aidw_idw_{t}": ("weight", [_P] * 5 + [_I] * 4 + [_D] * 3 + [_P, _P]) for t in ("f32", "f64")},
-    **{f"aidw_fused_{t}": ("fused", [_P] * 5 + [_I] * 5 + [_D] * 11 + [_P] * 3) for t in ("f32", "f64")},
+    **{f"aidw_fused_{t}": ("fused", [_P] * 5 + [_I] * 6 + [_D] * 11 + [_P] * 3) for t in ("f32", "f64")},
     **{f"aidw_naive_soa_{t}": ("naive", [_P] * 5 + [_I] * 6 + [_D] * 11 + [_P] * 3) for t in ("f32", "f64")},
     **{f"aidw_naive_aoas_{t}": ("naive", [_P] * 3 + [_I] * 6 + [_D] * 11 + [_P] * 3) for t in ("f32", "f64")},
     **{f"aidw_near_weight_{t}": ("near", [_P] * 7 + [_I] * 5 + [_D] + [_P] * 5) for t in ("f32", "f64")},

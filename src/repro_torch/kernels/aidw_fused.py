@@ -2,18 +2,20 @@
 (``csrc/fused.cu``), the port of ``repro/kernels/aidw_fused.py:_fused_kernel``,
 with its plain PyTorch version beside it.
 
-Each thread takes one query: the k-best over the data staged tile by tile
-through shared memory, alpha in a register, then the weight sweep at
-alpha / 2 with ``csrc/weight.cu``'s sum order.  Alpha and z are then the
-bits of the ``tiled`` impl's two kernels (``knn.cu`` and ``weight.cu``).
+S threads take one query, one warp-aligned part each (:func:`fused_launch`):
+the k-best over the data staged stage by stage through shared memory, each
+part sweeping its slice of every stage (:func:`fused_part`), the parts'
+k-bests merged, alpha in a register; then the weight sweep at alpha / 2,
+each tile of ``block_d`` points summed by one part from 0 and the tile sums
+folded in data order (the order of ``csrc/weight.cu``).  Alpha and z are
+then the bits of the ``tiled`` impl's two kernels (``knn.cu`` and
+``weight.cu``).
 
 A wrapper given CPU tensors runs the plain version (the CPU path); given
 CUDA tensors it launches the kernel or raises.
 """
 
 from __future__ import annotations
-
-import math
 
 import torch
 
@@ -23,13 +25,56 @@ from repro_torch.kernels.aidw_tiled import (
     _alpha_consts,
     _check_float,
     _on_card,
+    _sm_count,
     _suffix,
     check_k,
     knn_alpha_plain,
+    knn_part,
     weight_sweep_plain,
 )
 
+# csrc/aidw_common.cuh: kStageBytes, the {x, y, z, pad} points of a weight
+# stage; CPU tests read it back from the source
+STAGE_BYTES = 32 * 1024
+# fused_launch lets threads share a query while a batch has fewer threads
+# than this per SM, at most four a query, in CUDA blocks of _FUSED_THREADS
+_FUSED_SPLIT_THREADS_PER_SM = 8192
 _FUSED_THREADS = 256
+
+
+def fused_launch(n: int, sms: int, block_d: int, dtype) -> tuple[int, int]:
+    """``(threads, S)`` of a launch of the fused kernel (``csrc/fused.cu``)
+    for a batch of ``n`` queries and plan tiles of ``block_d`` points on a
+    card with ``sms`` multiprocessors: S threads of a CUDA block share a
+    query, one warp-aligned part each, which split its points in the kNN pass
+    and its tiles in the weight pass.  S doubles, up to 4, while the batch
+    has fewer than ``_FUSED_SPLIT_THREADS_PER_SM`` threads per SM, and falls
+    where a round of S tiles does not fit one ``STAGE_BYTES`` stage (a
+    tile of 4,096 float32 points is 64 KiB: S = 1).  Always 256 threads a
+    block: 128 were slower at 8,192, 65,536 and 2^20 queries, even where 256
+    leave SMs without a block (each block stages the whole data set, for
+    half as many queries at 128).  The CUDA block is not tied to the plan's
+    ``block_q``, which only pads the queries.  ``chip_smoke.py`` phase 36
+    times S = 1, 2, 4 at 128 and 256 threads a block at 8,192, 65,536 and
+    2^20 queries.  A query's alpha and z do not depend on it."""
+    tile_bytes = block_d * 4 * (torch.finfo(dtype).bits // 8)
+    splits = 1
+    while splits < 4 and n * splits < _FUSED_SPLIT_THREADS_PER_SM * sms:
+        splits *= 2
+    while splits > 1 and splits * tile_bytes > STAGE_BYTES:
+        splits //= 2
+    return _FUSED_THREADS, splits
+
+
+def fused_part(m: int, stage_d: int, splits: int, part: int) -> torch.Tensor:
+    """The points of a row of ``m`` that part ``part`` of ``splits`` walks in
+    the fused kernel's kNN pass: its slice of each stage of ``stage_d``
+    points (``aidw_tiled.py: knn_part``, the cut of ``csrc/knn.cu``)."""
+    out = []
+    for base in range(0, m, stage_d):
+        lo, hi = knn_part(min(stage_d, m - base), splits, part)
+        out.append(torch.arange(base + lo, base + hi))
+    return torch.cat(out)
 
 
 def aidw_fused_soa_plain(dx, dy, dz, qx, qy, *, params: AIDWParams, area: float, m_real: int, block_q: int,
@@ -57,8 +102,9 @@ def aidw_fused_soa(dx, dy, dz, qx, qy, *, params: AIDWParams, area: float, m_rea
     check_k("aidw_fused_soa", params.k)
     z, alpha = torch.empty_like(qx), torch.empty_like(qx)
     fn = _build.entry(f"aidw_fused_{_suffix(qx.dtype)}")
+    threads, splits = fused_launch(n, _sm_count(qx.device.index), block_d, qx.dtype)
     err = fn(qx.data_ptr(), qy.data_ptr(), dx.data_ptr(), dy.data_ptr(), dz.data_ptr(), n, m, block_d, params.k,
-             math.gcd(block_q, _FUSED_THREADS), *_alpha_consts(params, area, m_real), float(params.exact_hit_eps),
+             threads, splits, *_alpha_consts(params, area, m_real), float(params.exact_hit_eps),
              tiny_for(qx.dtype), z.data_ptr(), alpha.data_ptr(), torch.cuda.current_stream(qx.device).cuda_stream)
     _build.check(err, "aidw_fused_soa launch")
     _build.LAUNCHES["fused"] += 1

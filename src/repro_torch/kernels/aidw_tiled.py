@@ -48,9 +48,9 @@ def _k_list() -> tuple[int, ...]:
 # refused on the card (the CPU path takes any k)
 SUPPORTED_K = _k_list()
 
-# csrc/knn.cu: kKnnStageBytes, the x and y arrays of one stage of the kNN
-# walk (2,048 float32 or 1,024 float64 points), and aidw_common.cuh:
-# kKnnGroup, the points a step; CPU tests read both back from the sources
+# csrc/aidw_common.cuh: kKnnStageBytes, the x and y arrays of one stage of
+# the kNN walk (2,048 float32 or 1,024 float64 points), and kKnnGroup, the
+# points a step; CPU tests read both back from the source
 KNN_STAGE_BYTES = 16 * 1024
 KNN_GROUP = 8
 # knn_launch splits a batch's queries while it has fewer threads than this

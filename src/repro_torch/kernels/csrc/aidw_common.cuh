@@ -25,6 +25,7 @@
 #include <cuda_runtime.h>
 #include <float.h>
 #include <math.h>
+#include <stdint.h>
 
 #include "aoas.cuh"
 
@@ -81,6 +82,25 @@ __device__ __forceinline__ void cp_async_elem(int* dst, const int* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
 }
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+// x and y of one stage of a kNN walk (knn.cu, fused.cu pass 1): 2,048
+// float32 or 1,024 float64 points
+constexpr int kKnnStageBytes = 16 * 1024;
+
+// shared memory of {x, y, z, pad} points staged per __syncthreads by an
+// exact weight sweep (weight.cu, fused.cu pass 2): 2,048 float32 or 1,024
+// float64 points, four tiles of the default 512 in float32, two in float64
+constexpr size_t kStageBytes = 32 * 1024;
+
+// cnt values of src into dst (16-byte aligned) with cp.async: 16 bytes a
+// copy where src is aligned, else (and for the tail) one value a copy.
+template <typename T>
+__device__ __forceinline__ void stage_values(T* dst, const T* __restrict__ src, int cnt) {
+  constexpr int V = 16 / sizeof(T);
+  const int vec = reinterpret_cast<uintptr_t>(src) % 16 == 0 ? cnt - cnt % V : 0;
+  for (int i = threadIdx.x * V; i < vec; i += blockDim.x * V) cp_async16(dst + i, src + i);
+  for (int i = vec + threadIdx.x; i < cnt; i += blockDim.x) cp_async_elem(dst + i, src + i);
+}
 
 // The padding coordinate of core/layouts.py: coord_sentinel, finfo.max / 4:
 // its d^2 from any finite query overflows to +inf.
@@ -470,8 +490,8 @@ constexpr bool kAlignedGroups<SoaRows<T>> = true;
 // tile boundaries are the plan's block_d).  For SoA global rows the groups
 // start at the first multiple of kWeightGroup, the points before it one by
 // one, so that a group is three vector loads.  The one tile loop of every
-// exact sweep: weight.cu reads staged {x, y, z, pad} vectors, fused.cu SoA
-// shared arrays, naive.cu global memory, and all keep one set of bits
+// exact sweep: weight.cu and fused.cu read staged {x, y, z, pad} vectors,
+// naive.cu global memory, and all keep one set of bits
 // (weight_group's sums do not depend on where the groups start).
 template <typename T, typename Point>
 __device__ __forceinline__ void weight_tile(T px, T py, T neg_ah, int t0, int t1, Point point, T tiny, T& sum_w,

@@ -76,25 +76,13 @@
 // per-pair loop.  Every pair still goes through the insertion, which keeps
 // the same k-smallest multiset whether a tile merges or not: alpha is B1's
 // bits.
-#include <stdint.h>
-
 #include "aidw_common.cuh"
 #include "aoas.cuh"
 
 namespace aidw {
 
-// x and y of one stage: 2,048 float32 or 1,024 float64 points
-constexpr int kKnnStageBytes = 16 * 1024;
-
-// cnt values of src into dst (16-byte aligned) with cp.async: 16 bytes a
-// copy where src is aligned, else (and for the tail) one value a copy.
-template <typename T>
-__device__ __forceinline__ void stage_values(T* dst, const T* __restrict__ src, int cnt) {
-  constexpr int V = 16 / sizeof(T);
-  const int vec = reinterpret_cast<uintptr_t>(src) % 16 == 0 ? cnt - cnt % V : 0;
-  for (int i = threadIdx.x * V; i < vec; i += blockDim.x * V) cp_async16(dst + i, src + i);
-  for (int i = vec + threadIdx.x; i < cnt; i += blockDim.x) cp_async_elem(dst + i, src + i);
-}
+// The stage (aidw_common.cuh: kKnnStageBytes of x and y) and its copy
+// (stage_values) are shared with fused.cu's kNN pass.
 
 // cnt (x, y, z, 0) structs of src (aligned to a struct) into dst, as they are.
 template <typename T>

@@ -61,9 +61,8 @@
 
 namespace aidw {
 
-// shared memory staged per __syncthreads: 2,048 float32 or 1,024 float64
-// points, four tiles of the default 512 in float32, two in float64
-constexpr size_t kStageBytes = 32 * 1024;
+// A stage is aidw_common.cuh: kStageBytes of {x, y, z, pad} points, shared
+// with fused.cu's weight pass.
 
 // AOAS: dx is the (m, 4) struct array and dy, dz are unused.
 // CONST_AH: every query takes ah_const and ah is unused.

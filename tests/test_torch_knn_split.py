@@ -164,7 +164,7 @@ def test_parts_cover_a_stage_once(cnt, splits, unit):
 def test_stage_and_group_match_the_sources():
     knn = (_build.CSRC / "knn.cu").read_text()
     common = (_build.CSRC / "aidw_common.cuh").read_text()
-    assert re.search(r"constexpr int kKnnStageBytes = (\d+) \* 1024;", knn).group(1) == str(KNN_STAGE_BYTES // 1024)
+    assert re.search(r"constexpr int kKnnStageBytes = (\d+) \* 1024;", common).group(1) == str(KNN_STAGE_BYTES // 1024)
     assert re.search(r"constexpr int kKnnGroup = (\d+);", common).group(1) == str(KNN_GROUP)
     assert knn_stage_points(torch.float32) == 2048 and knn_stage_points(torch.float64) == 1024
     # every pair of the walk goes through knn_span's group, whose insertion stays behind one compare
