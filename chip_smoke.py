@@ -161,7 +161,23 @@ in order (a failed check raises, and the script exits nonzero):
     threads a query and 128 and 256 threads a block, at 8,192, 65,536 and
     2^20 queries (the median of 5 rounds), beside the wrapper's choice
     (``kernels/aidw_fused.py: fused_launch``), which must be the fastest or
-    within 3%, every setting giving the wrapper's bits.
+    within 3%, every setting giving the wrapper's bits;
+37. multi-device AIDW (``repro_torch.core.distributed``): 4 ranks started
+    with ``torch.multiprocessing`` share the card over gloo (one card holds
+    no two NCCL ranks, so each rotation is staged through the host and the
+    folds stay on the card) on a (2, 2) ``("data", "model")`` mesh, with the
+    ``aidw-pod-1m`` data and its first serving batch: ``ring_aidw`` over
+    both dims and over ``"data"``, ``ring_aidw_rotate_queries``,
+    ``sharded_queries_aidw``, and ``ring_aidw`` in float64 at 8,192
+    queries, each with its wall time per rank, fold launches and bytes
+    staged a rotation; ring alpha bit for bit B1's, ring z within 64 ulps of
+    B2's, sharded queries bit for bit the single-process ``chunked`` plan;
+    the ring replayed in one process (the fold kernels give the ranks' bits,
+    their plain versions alpha's bits and z within 64 ulps), with controls
+    that skip one rotation or drop the carry at one step, 10x outside; the
+    fold kernels (``knn.cu`` and ``weight.cu`` with FOLD) against their
+    plain versions on one rank's shapes, their SASS per pair, and their
+    CUDA-event times.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Without a CUDA card,
@@ -230,6 +246,21 @@ FAR_NODE_OPS = 18
 # the share of queries whose alpha moves by more than ALPHA_SHIFT
 BINNED_MEAN, BINNED_MAX, ALPHA_SHIFT, ALPHA_SHIFT_SHARE = 1e-4, 2e-2, 0.05, 0.02
 
+# phase 37: the ranks that share the card, their mesh, the rings' fold tile
+# (core/distributed.py's default d_chunk), the queries of each slab that the
+# single-process replays take, and the runs: name -> (function, axis_names,
+# dtype, queries; None: the whole serving batch)
+RING_RANKS, RING_MESH, RING_DIMS = 4, (2, 2), ("data", "model")
+RING_TILE, RING_SAMPLE, RING_F64_QUERIES = 2048, 256, 8192
+RING_TIMEOUT = 300.0  # seconds for the ranks, their start included
+RING_RUNS = {
+    "ring (data, model)": ("ring_aidw", None, "float32", None),
+    "ring (data)": ("ring_aidw", ("data",), "float32", None),
+    "ring_q (data, model)": ("ring_aidw_rotate_queries", None, "float32", None),
+    "sharded": ("sharded_queries_aidw", None, "float32", None),
+    "ring f64 (data, model)": ("ring_aidw", None, "float64", RING_F64_QUERIES),
+}
+
 KERNELS = {
     "knn_skip": dict(source="src/repro_torch/kernels/csrc/knn.cu",
                      replaces="src/repro/kernels/aidw_grid.py:168 _knn_kernel_skip"),
@@ -259,6 +290,10 @@ KERNELS = {
                    replaces="src/repro/kernels/aidw_tiled_v2.py:38 _knn_kernel_v2"),
     "idw": dict(source="src/repro_torch/kernels/csrc/weight.cu",
                 replaces="src/repro/kernels/idw_tiled.py:21 _idw_kernel"),
+    "knn_fold": dict(source="src/repro_torch/kernels/csrc/knn.cu",
+                     replaces="src/repro/core/distributed.py:62 _fold_knn (jnp, no Pallas)"),
+    "weight_fold": dict(source="src/repro_torch/kernels/csrc/weight.cu",
+                        replaces="src/repro/core/distributed.py:86 _fold_weights (jnp, no Pallas)"),
 }
 
 
@@ -407,14 +442,14 @@ def mufu(ops):
     return {op: c for op, c in ops.items() if op.startswith("MUFU")}
 
 
-def weight_func(aoas=False, const_ah=False):
-    """Mangled-name prefix of the float32 ``weight_kernel<float, aoas, const_ah>``."""
-    return f"_ZN4aidw13weight_kernelIfLb{int(aoas)}ELb{int(const_ah)}EE"
+def weight_func(aoas=False, const_ah=False, fold=False):
+    """Mangled-name prefix of the float32 ``weight_kernel<float, aoas, const_ah, fold>``."""
+    return f"_ZN4aidw13weight_kernelIfLb{int(aoas)}ELb{int(const_ah)}ELb{int(fold)}EE"
 
 
-def knn_func(k, aoas=False, binned=False, vote=False):
-    """Mangled-name prefix of the float32 ``knn_alpha_kernel<float, k, aoas, binned, vote>``."""
-    return f"_ZN4aidw16knn_alpha_kernelIfLi{k}ELb{int(aoas)}ELb{int(binned)}ELb{int(vote)}EE"
+def knn_func(k, aoas=False, binned=False, vote=False, fold=False):
+    """Mangled-name prefix of the float32 ``knn_alpha_kernel<float, k, aoas, binned, vote, fold>``."""
+    return f"_ZN4aidw16knn_alpha_kernelIfLi{k}ELb{int(aoas)}ELb{int(binned)}ELb{int(vote)}ELb{int(fold)}EE"
 
 
 _SASS = {}
@@ -442,10 +477,10 @@ def far_sass(name, splits=1):
     return kernel_sass(lib, func, cold=True)
 
 
-def knn_sass(k):
-    """The hot kNN loop of ``knn_alpha_kernel<float, k, false, false, false>``
+def knn_sass(k, fold=False):
+    """The hot kNN loop of ``knn_alpha_kernel<float, k, false, false, false, fold>``
     (two FMUL a pair; the insertion block left out)."""
-    return kernel_sass("knn", knn_func(k), marker="FMUL", per_pair=2, cold=True)
+    return kernel_sass("knn", knn_func(k, fold=fold), marker="FMUL", per_pair=2, cold=True)
 
 
 def naive_func(k, aoas=False):
@@ -963,6 +998,8 @@ def main():
                   z_tol=z_tol)
     naive_shape_phase(params=params, data=data, queries=queries, time_ms=time_ms)
     fused_shape_phase(params=params, data=data, queries=queries, time_ms=time_ms)
+    rows_out += ring_phase(dev=dev, params=params, data=data, queries=queries, time_ms=time_ms, bound=bound,
+                           b2_rtol=b2_rtol, maxerr=maxerr)
     print(f"  total {time.time() - t_start:.1f} s")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2581,7 +2618,9 @@ def row_shape_phase(*, params, data, queries, time_ms):
     (the first serving batch and another) and 2^20 queries, beside the
     wrapper's choice (``kernels/aidw_grid.py:
     row_launch``), which must be the fastest or within 5% of it; every
-    setting gives the wrapper's bits.  Also prints how far the near rows'
+    setting gives the wrapper's bits.  B4 takes its rows longest first
+    (``near_order``); it is also timed at the pick in row order, which gives
+    the same bits, for comparison.  Also prints how far the near rows'
     lengths spread."""
     import torch
 
@@ -2589,7 +2628,7 @@ def row_shape_phase(*, params, data, queries, time_ms):
     from repro_torch.engine import build_plan
     from repro_torch.engine.execute import _grid_layout, _near_field
     from repro_torch.kernels import _build
-    from repro_torch.kernels.aidw_grid import phase2_far_aggregates, phase2_near_weights, row_launch
+    from repro_torch.kernels.aidw_grid import near_order, phase2_far_aggregates, phase2_near_weights, row_launch
 
     print("== 32. B4 and B5 block sizes (CUDA events, float32, aidw-pod-1m far-field plan, m = 2^20)", flush=True)
     t_phase = time.time()
@@ -2611,10 +2650,13 @@ def row_shape_phase(*, params, data, queries, time_ms):
         ah = torch.full_like(lay.qx_v, 1.0)  # the sweeps' cost does not depend on alpha
         q3 = (lay.qx_v.data_ptr(), lay.qy_v.data_ptr(), ah.data_ptr())
         cand = (near.cand_x, near.cand_y, near.cand_z, near.num_tiles)
+        order = near_order(near.num_tiles)
         refs = {"B4": phase2_near_weights(lay.qx_v, lay.qy_v, ah, *cand, block_q=p.block_q, tile_d=p.p2_block_d),
                 "B5": phase2_far_aggregates(lay.qx_v, lay.qy_v, ah, near.rects, p.far, block_q=p.block_q,
                                             tile_d=p.p2_far_block_d)}
-        args = {"B4": lambda t: (*q3, *(c.data_ptr() for c in cand), n_v, p.block_q, c_tot, p.p2_block_d, t, tiny),
+        args = {"B4": lambda t, order=order: (*q3, *(c.data_ptr() for c in cand),
+                                              None if order is None else order.data_ptr(), n_v, p.block_q, c_tot,
+                                              p.p2_block_d, t, tiny),
                 "B5": lambda t: (*q3, near.rects.data_ptr(), *(a.data_ptr() for a in p.far), n_v, p.block_q, ncp,
                                  p.p2_far_block_d, t, tiny)}
         nt = near.num_tiles.double()
@@ -2623,22 +2665,26 @@ def row_shape_phase(*, params, data, queries, time_ms):
         for name, fn in fns.items():
             rule = row_launch(n_v, sms, block_q=p.block_q, far=name == "B5")
             runs = {}
-            for threads in (64, 128, 256):
+            settings = [(t, ()) for t in (64, 128, 256)] + ([("row order", (rule, None))] if name == "B4" else [])
+            for key, extra in settings:
                 outs = [torch.empty_like(lay.qx_v) for _ in refs[name]]
-                call = args[name](threads)
+                call = args[name](*extra) if extra else args[name](key)
 
                 def run(call=call, outs=outs):
                     _build.check(fn(*call, *(o.data_ptr() for o in outs), stream), f"{name} launch")
 
                 run()
                 check(all(torch.equal(o, r) for o, r in zip(outs, refs[name])),
-                      f"{name} with {threads} threads gives the wrapper's bits (n={n})")
-                runs[threads] = run
+                      f"{name} at {key} threads gives the wrapper's bits (n={n})")
+                runs[key] = run
             got = time_in_turns(time_ms, runs, 1 if n == M_FULL else 3)
+            in_row_order = got.pop("row order", None)
             best = min(got, key=got.get)
             print(f"    {name}: " + ", ".join(f"{t} threads {ms} ms" for t, ms in got.items())
                   + f"; fastest {best}; row_launch picks {rule} ({sms} SMs), {got[rule] / got[best]:.4f}x the "
-                  "fastest; all bitwise equal", flush=True)
+                  "fastest; all bitwise equal"
+                  + (f"; the pick in row order {in_row_order} ms ({in_row_order / got[rule]:.4f}x longest first)"
+                     if in_row_order is not None else ""), flush=True)
             check(got[rule] <= 1.05 * got[best],
                   f"row_launch's pick for {name} at n={n} seed={seed} is within 5% of the fastest")
         del lay, near, cand, refs
@@ -2827,6 +2873,265 @@ def fused_shape_phase(*, params, data, queries, time_ms):
               "fastest; all bitwise equal", flush=True)
         check(got[rule] <= 1.03 * got[best], f"fused_launch's pick at n={n} is within 3% of the fastest")
     print(f"  phase 36: {time.time() - t_phase:.1f} s", flush=True)
+
+
+def ring_rank(rank, world, m, n_q, seed, params, device):
+    """Phase 37 on one of the ranks that share the card: each run of
+    ``RING_RUNS`` (after a warm-up that loads the kernel libraries) on this
+    rank's shards of the ``aidw-pod-1m`` data (``m`` points, seed 0) and of
+    the serving batch (``n_q`` queries from ``seed``), both made here as
+    ``main`` makes them, started after a barrier with the launch and
+    transfer counts set to 0 and read just after it ends; its host wall time
+    (synchronized) and this rank's z and alpha."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core import distributed as D
+    from repro_torch.data import clustered_points
+    from repro_torch.kernels import _build
+
+    rng = np.random.default_rng(seed)
+    arrays = (*clustered_points(m, seed=0), *(rng.random(n_q).astype(np.float32) for _ in range(2)))
+    mesh = init_device_mesh("cpu", RING_MESH, mesh_dim_names=RING_DIMS)
+    dev = torch.device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    out = {}
+    for name, (fn, axes, dtype, n_q) in {"warm-up": ("ring_aidw", None, "float32", 4096), **RING_RUNS}.items():
+        dt = getattr(torch, dtype)
+        data = [torch.as_tensor(a).to(dev, dt) for a in arrays[:3]]
+        q = [torch.as_tensor(a[:n_q]).to(dev, dt) for a in arrays[3:]]
+        if fn == "sharded_queries_aidw":
+            args, kw = (*data, *(D.local_shard(mesh, a) for a in q)), {}
+        else:
+            args, kw = tuple(D.local_shard(mesh, a, axes) for a in (*data, *q)), {"axis_names": axes}
+        sync()
+        dist.barrier()
+        _build.reset_launch_counts()
+        D.reset_transfer_counts()
+        t0 = time.time()
+        z, alpha = getattr(D, fn)(mesh, *args, params=params, area=1.0, **kw)
+        sync()
+        wall = time.time() - t0
+        out[name] = dict(z=z, alpha=alpha, wall=wall, launches={k: v for k, v in _build.LAUNCHES.items() if v},
+                         transfer=dict(D.TRANSFER))
+    return out
+
+
+def ring_phase(*, dev, params, data, queries, time_ms, bound, b2_rtol, maxerr):
+    """Phase 37: multi-device AIDW (``repro_torch.core.distributed``) with
+    ``RING_RANKS`` ranks that share the one card over gloo (one card holds
+    no two NCCL ranks; each rotation is staged through the host, the folds
+    stay on the card), on the ``aidw-pod-1m`` data and its first serving
+    batch.  Returns the ``kernels`` rows of the two fold kernels."""
+    import collections
+
+    import torch
+
+    from repro_torch.core import distributed as D
+    from repro_torch.engine import build_plan, execute
+    from repro_torch.kernels import _build
+    from repro_torch.kernels._common import sfu_weight_eps
+    from repro_torch.kernels.aidw_tiled import (
+        knn_alpha,
+        knn_fold,
+        knn_fold_plain,
+        weight_carry,
+        weight_fold,
+        weight_fold_plain,
+        weight_sweep,
+    )
+
+    n_q, seed = SERVING[0]
+    print(f"== 37. multi-device AIDW: {RING_RANKS} ranks on one card over gloo, mesh {RING_MESH} {RING_DIMS}, "
+          f"aidw-pod-1m (m = 2^20), serving batch n={n_q} seed={seed}, f64 at {RING_F64_QUERIES} queries", flush=True)
+    t_phase = time.time()
+    _build.build_all()  # here, once: the ranks load the libraries
+    if dev.type == "cuda":
+        # the fold instances run B1's and B2's loops: their SASS a pair, held
+        # as phase 1 holds those of B1 and B2
+        loop, b1 = knn_sass(10, fold=True), knn_sass(10)
+        check(loop is not None, "the SASS of knn_alpha_kernel<float, 10, ..., fold> has a per-pair loop")
+        ffma = sum(c for op, c in loop[1].items() if op.startswith("FFMA"))
+        lds = sum(c for op, c in loop[1].items() if op.startswith("LDS"))
+        w = kernel_sass("weight", weight_func(fold=True))
+        check(w is not None, "the SASS of weight_kernel<float, false, false, true> has a per-pair loop")
+        print(f"  knn_fold SASS hot loop: {loop[0]} instructions per pair (B1 {b1[0]}), FFMA {ffma}, LDS {lds}; "
+              f"weight_fold per-pair loop: {w[0]} instructions per pair, MUFU {mufu(w[1])}")
+        check(ffma == 0 and lds <= 0.5, "the knn_fold loop holds no FFMA and at most one LDS per two pairs")
+        check(sum(mufu(w[1]).values()) <= MUFU_PER_PAIR, f"weight_fold takes at most {MUFU_PER_PAIR} MUFU ops a pair")
+    qx, qy = queries(n_q, seed)
+    dx, dy, dz = data(torch.float32)
+    t0 = time.time()
+    ranks = D.spawn_ranks(ring_rank, RING_RANKS, (M_FULL, n_q, seed, params, str(dev)), timeout=RING_TIMEOUT)
+    print(f"  {RING_RANKS} ranks started, ran every method and joined in {time.time() - t0:.1f} s; warm-up walls "
+          f"{[r['warm-up']['wall'] for r in ranks]} s", flush=True)
+
+    def gathered(name, key):
+        # the global array from the ranks' shards: over both dims shard r is
+        # rank r's (row-major); over "data" alone mesh row i (ranks 2i, 2i + 1)
+        if RING_RUNS[name][1] == ("data",):
+            for r in (0, 2):
+                check(torch.equal(ranks[r][name][key], ranks[r + 1][name][key]), f"{name}: the replicas agree")
+            order = (0, 2)
+        else:
+            order = range(RING_RANKS)
+        return torch.cat([ranks[r][name][key] for r in order]).to(dev)
+
+    # single-process references on the same inputs: B1 (shared row) alpha,
+    # B2 z at the ring's tile, and the chunked plan of sharded_queries_aidw
+    m_l = M_FULL // RING_RANKS
+    refs = {}
+    for dtype, n in ((torch.float32, n_q), (torch.float64, RING_F64_QUERIES)):
+        x, y, z = data(dtype)
+        a, b = qx[:n].to(dtype), qy[:n].to(dtype)
+        alpha = knn_alpha(a, b, x[None], y[None], block_q=256, tile_d=512, params=params, area=1.0, m_real=M_FULL)
+        refs[dtype] = alpha, weight_sweep(a, b, alpha * 0.5, x, y, z, tile_d=RING_TILE, eps=params.exact_hit_eps)
+    plan = build_plan(dx, dy, dz, params=params, area=1.0, impl="chunked", knn="brute", q_chunk=1024, d_chunk=8192,
+                      device=dev)
+    refs["chunked"] = execute(plan, qx, qy)
+
+    launches = {}
+    for name, (fn, axes, dtype, n) in RING_RUNS.items():
+        dt = getattr(torch, dtype)
+        z, alpha = gathered(name, "z"), gathered(name, "alpha")
+        count = collections.Counter()
+        for r in ranks:
+            count.update(r[name]["launches"])
+        launches[name] = dict(count)
+        tr = ranks[0][name]["transfer"]
+        per = tr["staged_bytes"] / tr["rotations"] if tr["rotations"] else 0
+        print(f"  {name}: wall per rank {[r[name]['wall'] for r in ranks]} s, launches (all ranks) {dict(count)}, "
+              f"rank 0 {tr['rotations']} rotations, {tr['sent_bytes']} bytes sent, {tr['staged_bytes']} bytes staged "
+              f"through the host ({per} a rotation)", flush=True)
+        if fn == "sharded_queries_aidw":
+            same = torch.equal(z, refs["chunked"][0]) and torch.equal(alpha, refs["chunked"][1])
+            print(f"  {name}: bitwise equal to the single-process chunked plan {same}")
+            check(same, f"{name} gives the single-process chunked plan's bits")
+            check(not count, f"{name} launches no kernel (the chunked plan is plain PyTorch)")
+            continue
+        a_ref, z_ref = refs[dt]
+        rel = float(((z - z_ref) / z_ref).abs().max())
+        print(f"  {name}: alpha bitwise equal to B1 {torch.equal(alpha, a_ref)}; z {rel:.3e} relative from B2 "
+              f"(tolerance {b2_rtol(dt):.3e}, 64 ulps)")
+        check(torch.equal(alpha, a_ref), f"{name}: alpha has B1's bits")
+        check(rel <= b2_rtol(dt), f"{name}: z within 64 ulps of B2's")
+        steps = 2 if axes == ("data",) else RING_RANKS
+        check(count == {"knn_fold": RING_RANKS * steps, "weight_fold": RING_RANKS * steps},
+              f"{name}: {steps} launches of each fold kernel a rank")
+        check(dev.type == "cpu" or tr["staged_bytes"] == 2 * tr["sent_bytes"] > 0,
+              f"{name}: every rotation staged through the host")
+
+    # the ring replayed in this process on RING_SAMPLE queries of each slab:
+    # the fold kernels in the ring's visiting order give the ranks' bits; the
+    # plain versions alpha's bits and z within 64 ulps; a ring that skips
+    # one rotation (a shard folded twice, one never) or drops the carry at
+    # one step fails the check against B2 by 10x or more
+    shards = [tuple(t[i * m_l:(i + 1) * m_l] for t in (dx, dy, dz)) for i in range(RING_RANKS)]
+    last = RING_RANKS - 1
+
+    def replay(lo, order, knn=knn_fold, weight=weight_fold, drop_at=None):
+        a, b = qx[lo:lo + RING_SAMPLE], qy[lo:lo + RING_SAMPLE]
+        best = torch.full((RING_SAMPLE, params.k), math.inf, device=dev)
+        for s, sh in enumerate(order):
+            best = knn(torch.full_like(best, math.inf) if s == drop_at else best, a, b, *shards[sh][:2],
+                       tile_d=RING_TILE, params=params, area=1.0, m_total=M_FULL, finish=s == last)
+        acc = weight_carry(a)
+        for s, sh in enumerate(order):
+            acc = weight(weight_carry(a) if s == drop_at else acc, a, b, best * 0.5, *shards[sh], tile_d=RING_TILE,
+                         eps=params.exact_hit_eps, finish=s == last)
+        return acc, best
+
+    tol = b2_rtol(torch.float32)
+    controls = {"skip": [], "drop": []}
+    for name, step in (("ring (data, model)", -1), ("ring_q (data, model)", 1)):
+        z_ring, a_ring = gathered(name, "z"), gathered(name, "alpha")
+        for r in range(RING_RANKS):
+            lo = r * (n_q // RING_RANKS)
+            sl = slice(lo, lo + RING_SAMPLE)
+            order = [(r + step * s) % RING_RANKS for s in range(RING_RANKS)]
+            zk, ak = replay(lo, order)
+            zp, ap = replay(lo, order, knn_fold_plain, weight_fold_plain)
+            check(torch.equal(zk, z_ring[sl]) and torch.equal(ak, a_ring[sl]),
+                  f"{name}: the replay of slab {r} with the fold kernels gives the ranks' bits")
+            check(torch.equal(ap, ak), f"{name}: the plain replay of slab {r} gives alpha's bits")
+            report(f"{name} slab {r}: replayed z with the kernels against the plain folds, relative",
+                   float(((zk - zp) / zp).abs().max()), tol)
+            z_b2 = refs[torch.float32][1][sl]
+            skipped = [order[0]] + order[:-1]  # the rotation after step 0 skipped: shard order[-1] never folded
+            controls["skip"].append(float(((replay(lo, skipped)[0] - z_b2) / z_b2).abs().max()) / tol)
+            controls["drop"].append(float(((replay(lo, order, drop_at=2)[0] - z_b2) / z_b2).abs().max()) / tol)
+    print(f"  replays: kernels == ranks bitwise, plain alpha bitwise and z within 64 ulps on {RING_SAMPLE} queries "
+          f"of every slab; controls, in tolerances of the B2 check: one rotation skipped "
+          f"{min(controls['skip']):.1f}-{max(controls['skip']):.1f}x, the carry dropped at step 2 "
+          f"{min(controls['drop']):.1f}-{max(controls['drop']):.1f}x", flush=True)
+    check(min(controls["skip"]) >= 10 and min(controls["drop"]) >= 10, "both controls fail the check by 10x or more")
+
+    # each fold kernel against its plain version on one rank's shapes (its
+    # slab of the serving batch against one data shard), from a carry of
+    # another shard; then timed with CUDA events (float32)
+    rows, timed = [], {}
+    n_l = n_q // RING_RANKS
+    for dtype in (torch.float32, torch.float64):
+        x, y, z = data(dtype)
+        a, b = qx[:n_l].to(dtype), qy[:n_l].to(dtype)
+        s0, s1 = ((x[i * m_l:(i + 1) * m_l], y[i * m_l:(i + 1) * m_l], z[i * m_l:(i + 1) * m_l]) for i in (0, 1))
+        kw = dict(tile_d=RING_TILE, params=params, area=1.0, m_total=M_FULL)
+        best = knn_fold(torch.full((n_l, params.k), math.inf, dtype=dtype, device=dev), a, b, *s1[:2], **kw)
+        kb, pb = knn_fold(best, a, b, *s0[:2], **kw), knn_fold_plain(best, a, b, *s0[:2], **kw)
+        ka, pa = (f(best, a, b, *s0[:2], finish=True, **kw) for f in (knn_fold, knn_fold_plain))
+        check(torch.equal(kb, pb) and torch.equal(ka, pa), f"knn_fold {dtype}: k-best and alpha equal the plain version")
+        ah = ka * 0.5
+        wk = dict(tile_d=RING_TILE, eps=params.exact_hit_eps)
+        carry = weight_fold(weight_carry(a), a, b, ah, *s1, **wk)
+        kc, pc = weight_fold(carry, a, b, ah, *s0, **wk), weight_fold_plain(carry, a, b, ah, *s0, **wk)
+        kz, pz = (f(carry, a, b, ah, *s0, finish=True, **wk) for f in (weight_fold, weight_fold_plain))
+        e_sum = max(float(((kc[i] - pc[i]) / pc[i]).abs().max()) for i in (0, 1))
+        e_z = float(((kz - pz) / pz).abs().max())
+        # the tolerances: for the order inside a tile, 64 ulps of z and of
+        # each sum scaled by RING_TILE / 512, as phase 2 scales B2's for its
+        # larger tile (a sequential sum's rounding bound grows with its
+        # length); for the sums in float32 also the special-function units'
+        # error of the shard's terms (kernels/_common.py: sfu_weight_eps,
+        # largest where |ln d^2| is: at the shard's nearest point or at d^2 =
+        # 2, the unit square's diagonal) times the shard's share of the sum
+        # (in z those errors cancel to within the 64 ulps)
+        rtol = b2_rtol(dtype) * RING_TILE / 512
+        tol = rtol * pc[:2].abs().double()
+        if dtype == torch.float32:
+            near = weight_fold_plain(weight_carry(a), a, b, ah, *s0, **wk)[2]
+            sfu = torch.maximum(sfu_weight_eps(near, ah), sfu_weight_eps(torch.full_like(near, 2.0), ah))
+            tol = tol + sfu * (pc[:2] - carry[:2]).abs().double()
+        r_sum = float(((kc[:2] - pc[:2]).abs().double() / tol).max())
+        print(f"  knn_fold {dtype} ({n_l} queries x {m_l} points, carry of shard 1): k-best and alpha bitwise equal "
+              f"to plain True; weight_fold sums {e_sum:.3e} relative from plain ({r_sum:.3f} of their tolerance), z "
+              f"{e_z:.3e} (tolerance {rtol:.3e}), min d^2 and hit z bitwise {torch.equal(kc[2:], pc[2:])}")
+        check(r_sum <= 1 and e_z <= rtol and torch.equal(kc[2:], pc[2:]),
+              f"weight_fold {dtype}: sums and z within their tolerances of plain, min d^2 and hit z bitwise")
+        # CUDA-event times of both kernels at these shapes, the plain versions' in float32
+        calls = {"knn_fold": (lambda: knn_fold(best, a, b, *s0[:2], **kw),
+                              lambda: knn_fold_plain(best, a, b, *s0[:2], **kw), maxerr(kb, pb)),
+                 "weight_fold": (lambda: weight_fold(carry, a, b, ah, *s0, **wk),
+                                 lambda: weight_fold_plain(carry, a, b, ah, *s0, **wk), maxerr(kz, pz))}
+        for name, (kern, plain, err) in calls.items():
+            t = timed.setdefault(name, {})
+            t[dtype] = time_ms(kern, 10)
+            if dtype == torch.float32:
+                t["plain"], t["err"] = time_ms(plain, 1, warmup=0), err
+    pairs = n_l * m_l
+    need = {"knn_fold": (pairs, 4 * (2 * n_l + 2 * m_l + 2 * n_l * params.k), 6, 0),
+            "weight_fold": (pairs, 4 * (3 * n_l + 3 * m_l + 8 * n_l), 13, pairs * MUFU_PER_PAIR)}
+    for name, t in timed.items():
+        bound_ms, bound_by = bound(*need[name][:3], sfu_ops=need[name][3])
+        n_launch = launches["ring (data, model)"].get(name, 0)
+        print(f"  {name}: {t[torch.float32]} ms a launch in float32, {t[torch.float64]} ms in float64 (CUDA events; "
+              f"plain {t['plain']} ms in float32, bound {bound_ms} ms by {bound_by}, {pairs} pairs); {n_launch} "
+              "launches in the ring (data, model) run", flush=True)
+        rows.append(dict(name=name, route="cuda", **KERNELS[name], launches=n_launch, max_abs_err=t["err"],
+                         ms=t[torch.float32], plain_ms=t["plain"], bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=None))
+    print(f"  phase 37: {time.time() - t_phase:.1f} s", flush=True)
+    return rows
 
 
 def serving_phase(*, dev, params, data, queries, sync, maxerr, time_ms, z_tol):

@@ -51,18 +51,21 @@ ENTRY_POINTS = {
        for t in ("f32", "f64")},
     **{f"aidw_weight_aoas_{t}": ("weight", [_P] * 4 + [_I] * 4 + [_D, _D, _P, _P]) for t in ("f32", "f64")},
     **{f"aidw_idw_{t}": ("weight", [_P] * 5 + [_I] * 4 + [_D] * 3 + [_P, _P]) for t in ("f32", "f64")},
+    **{f"aidw_knn_fold_{t}": ("knn", [_P] * 5 + [_I] * 6 + [_D] * 9 + [_P] * 3) for t in ("f32", "f64")},
+    **{f"aidw_weight_fold_{t}": ("weight", [_P] * 7 + [_I] * 4 + [_D] * 2 + [_P] * 3) for t in ("f32", "f64")},
     **{f"aidw_fused_{t}": ("fused", [_P] * 5 + [_I] * 6 + [_D] * 11 + [_P] * 3) for t in ("f32", "f64")},
     **{f"aidw_naive_soa_{t}": ("naive", [_P] * 5 + [_I] * 6 + [_D] * 11 + [_P] * 3) for t in ("f32", "f64")},
     **{f"aidw_naive_aoas_{t}": ("naive", [_P] * 3 + [_I] * 6 + [_D] * 11 + [_P] * 3) for t in ("f32", "f64")},
-    **{f"aidw_near_weight_{t}": ("near", [_P] * 7 + [_I] * 5 + [_D] + [_P] * 5) for t in ("f32", "f64")},
+    **{f"aidw_near_weight_{t}": ("near", [_P] * 8 + [_I] * 5 + [_D] + [_P] * 5) for t in ("f32", "f64")},
     **{f"aidw_far_cell_{t}": ("far", [_P] * 10 + [_I] * 5 + [_D] + [_P] * 3) for t in ("f32", "f64")},
     **{f"aidw_far_node_{t}": ("far_node", [_P] * 12 + [_I] * 7 + [_D] + [_P] * 3) for t in ("f32", "f64")},
 }
 
-# kernel name (the TPU kernel it replaces) -> launches since the last reset
+# kernel name (the TPU kernel it replaces; knn_fold and weight_fold the
+# ring's jnp folds) -> launches since the last reset
 LAUNCHES = {"knn_soa": 0, "knn_skip": 0, "weight_soa": 0, "near_weight": 0, "far_cell": 0, "far_node": 0,
             "naive_soa": 0, "naive_aoas": 0, "knn_aoas": 0, "weight_aoas": 0, "knn_binned": 0,
-            "fused": 0, "knn_v2": 0, "idw": 0}
+            "fused": 0, "knn_v2": 0, "idw": 0, "knn_fold": 0, "weight_fold": 0}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -165,6 +165,15 @@ def row_launch(n: int, sms: int, *, block_q: int = 256, far: bool = False) -> in
     return math.gcd(block_q, threads)
 
 
+def near_order(num_tiles):
+    """The order in which ``csrc/near.cu``'s CUDA blocks take the near rows:
+    longest walk first (ties in row order), int32.  A batch of a few hundred
+    rows is one wave that the block scheduler deals out over the SMs in block
+    order, so each SM gets one row of every band of similar lengths.  A
+    query's sums do not depend on it."""
+    return torch.argsort(num_tiles, descending=True, stable=True).to(torch.int32)
+
+
 def phase2_near_weights_plain(qx, qy, alpha_half, cand_x, cand_y, cand_z, num_tiles, *, block_q: int,
                               tile_d: int):
     """Plain version of :func:`phase2_near_weights`: ``weight_tile`` tile by
@@ -218,9 +227,10 @@ def phase2_near_weights(qx, qy, alpha_half, cand_x, cand_y, cand_z, num_tiles, *
     if num_tiles.dtype != torch.int32 or not num_tiles.is_contiguous():
         raise ValueError("phase2_near_weights: num_tiles must be a contiguous int32 tensor")
     out = [torch.empty_like(qx) for _ in range(4)]
+    order = near_order(num_tiles)
     fn = _build.entry(f"aidw_near_weight_{_suffix(qx.dtype)}")
     err = fn(qx.data_ptr(), qy.data_ptr(), alpha_half.data_ptr(), cand_x.data_ptr(), cand_y.data_ptr(),
-             cand_z.data_ptr(), num_tiles.data_ptr(), n, block_q, c_tot, tile_d,
+             cand_z.data_ptr(), num_tiles.data_ptr(), order.data_ptr(), n, block_q, c_tot, tile_d,
              row_launch(n, _sm_count(qx.device.index), block_q=block_q), tiny_for(qx.dtype),
              *(o.data_ptr() for o in out), torch.cuda.current_stream(qx.device).cuda_stream)
     _build.check(err, "phase2_near_weights launch")

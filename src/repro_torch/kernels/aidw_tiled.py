@@ -15,6 +15,11 @@ CUDA kernels, each with its plain PyTorch version beside it.
   ``repro/kernels/aidw_tiled.py:_knn_kernel_aoas`` and ``_weight_kernel_aoas``.
   Their plain versions take the struct columns and run the SoA plain
   versions, so AoaS gives the SoA bits.
+* :func:`knn_fold`, :func:`weight_fold` - the same two sources with their
+  FOLD flag, the ring's folds of ``repro/core/distributed.py`` (``_fold_knn``
+  and ``_fold_weights``, jnp scans with no Pallas kernel): the walk and the
+  sweep over a data shard started from the state carried in, ending with
+  that state or, on the ring's last step, with alpha or z.
 
 A wrapper given CPU tensors runs the plain version (the CPU path); given
 CUDA tensors it launches the kernel or raises.  The plain versions compute
@@ -268,22 +273,9 @@ def knn_alpha(qx, qy, cand_x, cand_y, *, block_q: int, tile_d: int, num_tiles=No
 
 
 def weight_sweep_plain(qx, qy, alpha_half, dx, dy, dz, *, tile_d: int, eps: float):
-    """Plain version of :func:`weight_sweep`, tile by tile."""
-    n = qx.shape[0]
-    zeros = torch.zeros((n, 1), dtype=qx.dtype, device=qx.device)
-    sum_w, sum_wz, hit_z = zeros, zeros, zeros
-    min_d2 = torch.full((n, 1), math.inf, dtype=qx.dtype, device=qx.device)
-    qx2, qy2, ah2 = qx[:, None], qy[:, None], alpha_half[:, None]
-    for j in range(dx.shape[0] // tile_d):
-        s = slice(j * tile_d, (j + 1) * tile_d)
-        d2 = sq_dist_tile(qx2, qy2, dx[None, s], dy[None, s])
-        sw, swz, tmin, thz = weight_tile(d2, dz[None, s], ah2)
-        sum_w = sum_w + sw
-        sum_wz = sum_wz + swz
-        better = tmin < min_d2
-        hit_z = torch.where(better, thz, hit_z)
-        min_d2 = torch.where(better, tmin, min_d2)
-    return torch.where(min_d2 <= eps, hit_z, sum_wz / sum_w)[:, 0]
+    """Plain version of :func:`weight_sweep`, tile by tile: the fold of all
+    the data onto the empty carry."""
+    return weight_fold_plain(weight_carry(qx), qx, qy, alpha_half, dx, dy, dz, tile_d=tile_d, eps=eps, finish=True)
 
 
 def weight_sweep(qx, qy, alpha_half, dx, dy, dz, *, tile_d: int, eps: float):
@@ -391,3 +383,98 @@ def aidw_tiled_aoas(data, qx, qy, *, params: AIDWParams, area: float, m_real: in
                            m_real=m_real)
     z = weight_sweep_aoas(qx, qy, alpha * 0.5, data, tile_d=block_d, eps=params.exact_hit_eps)
     return z, alpha
+
+
+# ------------------------------------------------------------ the ring's folds
+def weight_carry(qx):
+    """The weight partials of the queries ``qx`` before any data: ``(4, n)``
+    rows sum_w = 0, sum_wz = 0, min_d2 = +inf, hit_z = 0."""
+    carry = torch.zeros((4, qx.shape[0]), dtype=qx.dtype, device=qx.device)
+    carry[2] = math.inf
+    return carry
+
+
+def knn_fold_plain(best, qx, qy, dx, dy, *, tile_d: int, params: AIDWParams, area: float, m_total: int,
+                   finish: bool = False):
+    """Plain version of :func:`knn_fold`: ``best`` merged with each tile of
+    ``tile_d`` points in turn (``merge_k_best``), then with ``finish`` alpha."""
+    qx2, qy2 = qx[:, None], qy[:, None]
+    for j in range(dx.shape[0] // tile_d):
+        s = slice(j * tile_d, (j + 1) * tile_d)
+        best = merge_k_best(best, sq_dist_tile(qx2, qy2, dx[None, s], dy[None, s]))
+    return alpha_from_best(best, m_total, area, params)[:, 0] if finish else best
+
+
+def knn_fold(best, qx, qy, dx, dy, *, tile_d: int, params: AIDWParams, area: float, m_total: int,
+             finish: bool = False):
+    """The ring's Phase-1 fold: the k smallest d^2 of each query among its
+    carried k-best ``best (n, k)`` and the data shard ``dx, dy (m,)``,
+    ``m % tile_d == 0``, ascending ``(n, k)``; with ``finish`` (the ring's
+    last step) alpha ``(n,)`` from them with the alpha constants of
+    ``m_total`` data points, B1's epilogue.  The kernel's k-best does not
+    depend on ``tile_d``; the plain version folds tile by tile."""
+    n, m = qx.shape[0], dx.shape[0]
+    if best.shape != (n, params.k) or qy.shape != qx.shape or dy.shape != dx.shape or m % tile_d:
+        raise ValueError(f"knn_fold: bad shapes best={tuple(best.shape)} q={tuple(qx.shape)} d={tuple(dx.shape)} "
+                         f"k={params.k} tile_d={tile_d}")
+    kw = dict(params=params, area=area, m_total=m_total, finish=finish)
+    if not _on_card("knn_fold", best, qx, qy, dx, dy):
+        return knn_fold_plain(best, qx, qy, dx, dy, tile_d=tile_d, **kw)
+    _check_float("knn_fold", qx, qy, dx, dy, best)
+    check_k("knn_fold", params.k)
+    block_q = math.gcd(n, 256)  # a CUDA block's queries divide it, and it divides n
+    threads, splits = knn_launch_for(qx, block_q)
+    out = torch.empty_like(qx) if finish else torch.empty_like(best)
+    fn = _build.entry(f"aidw_knn_fold_{_suffix(qx.dtype)}")
+    err = fn(qx.data_ptr(), qy.data_ptr(), dx.data_ptr(), dy.data_ptr(), best.data_ptr(), n, block_q, m, params.k,
+             threads, splits, *_alpha_consts(params, area, m_total), None if finish else out.data_ptr(),
+             out.data_ptr() if finish else None, torch.cuda.current_stream(qx.device).cuda_stream)
+    _build.check(err, "knn_fold launch")
+    _build.LAUNCHES["knn_fold"] += 1
+    return out
+
+
+def weight_fold_plain(carry, qx, qy, alpha_half, dx, dy, dz, *, tile_d: int, eps: float, finish: bool = False):
+    """Plain version of :func:`weight_fold`, tile by tile."""
+    sum_w, sum_wz, min_d2, hit_z = (c[:, None] for c in carry)
+    qx2, qy2, ah2 = qx[:, None], qy[:, None], alpha_half[:, None]
+    for j in range(dx.shape[0] // tile_d):
+        s = slice(j * tile_d, (j + 1) * tile_d)
+        d2 = sq_dist_tile(qx2, qy2, dx[None, s], dy[None, s])
+        sw, swz, tmin, thz = weight_tile(d2, dz[None, s], ah2)
+        sum_w = sum_w + sw
+        sum_wz = sum_wz + swz
+        better = tmin < min_d2
+        hit_z = torch.where(better, thz, hit_z)
+        min_d2 = torch.where(better, tmin, min_d2)
+    if finish:
+        return torch.where(min_d2 <= eps, hit_z, sum_wz / sum_w)[:, 0]
+    return torch.cat([sum_w, sum_wz, min_d2, hit_z], dim=1).T.contiguous()
+
+
+def weight_fold(carry, qx, qy, alpha_half, dx, dy, dz, *, tile_d: int, eps: float, finish: bool = False):
+    """The ring's Phase-2 fold: the weight partials ``carry (4, n)`` (rows
+    sum_w, sum_wz, min_d2, hit_z; :func:`weight_carry` before any data) after
+    the data shard ``dx, dy, dz (m,)``, ``m % tile_d == 0``: each tile's sums
+    added to them in data order, the first minimum kept with a strict ``<``
+    (a tie keeps the carried one).  Returns the new ``(4, n)`` partials, or
+    with ``finish`` (the ring's last step) z ``(n,)`` by the exact-hit rule
+    at ``eps``.  Summed in :func:`weight_sweep`'s order, so the fold of all
+    the data onto :func:`weight_carry` gives B2's z."""
+    n, m = qx.shape[0], dx.shape[0]
+    if (carry.shape != (4, n) or m % tile_d or not (dy.shape == dz.shape == dx.shape)
+            or not (qy.shape == alpha_half.shape == qx.shape)):
+        raise ValueError(f"weight_fold: bad shapes carry={tuple(carry.shape)} q={tuple(qx.shape)} "
+                         f"d={tuple(dx.shape)} tile_d={tile_d}")
+    if not _on_card("weight_fold", carry, qx, qy, alpha_half, dx, dy, dz):
+        return weight_fold_plain(carry, qx, qy, alpha_half, dx, dy, dz, tile_d=tile_d, eps=eps, finish=finish)
+    _check_float("weight_fold", qx, qy, alpha_half, dx, dy, dz, carry)
+    out = torch.empty_like(qx) if finish else torch.empty_like(carry)
+    fn = _build.entry(f"aidw_weight_fold_{_suffix(qx.dtype)}")
+    err = fn(qx.data_ptr(), qy.data_ptr(), alpha_half.data_ptr(), dx.data_ptr(), dy.data_ptr(), dz.data_ptr(),
+             carry.data_ptr(), n, m, tile_d, _weight_threads(qx), float(eps), tiny_for(qx.dtype),
+             None if finish else out.data_ptr(), out.data_ptr() if finish else None,
+             torch.cuda.current_stream(qx.device).cuda_stream)
+    _build.check(err, "weight_fold launch")
+    _build.LAUNCHES["weight_fold"] += 1
+    return out

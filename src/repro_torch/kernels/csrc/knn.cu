@@ -17,6 +17,16 @@
 // one it walks the whole row.  The skipped tail holds only sentinel points,
 // whose +inf never enters a k-best set, so both walks give the same bits.
 //
+// FOLD is the ring's fold (the port of the jnp scan
+// src/repro/core/distributed.py:62 _fold_knn, which has no Pallas kernel):
+// the same walk on one shared data row (a data shard), but each query's
+// k-best starts from the k values carried in (best_in, (n, K)) instead of
+// +inf, and the epilogue writes the sorted k-best to best_out (n, K); on
+// the ring's last step best_out is NULL and it writes alpha as B1 does,
+// with the constants of the whole data count.  The carry enters through
+// the insertion, once, in part 0; the other parts start at +inf, so the
+// merge of the parts gives the k smallest of the carry and the shard.
+//
 // The set a walk keeps, the K smallest d^2 with their multiplicities, does
 // not depend on the order in which the points come: an insertion takes a
 // value only when it is strictly below the k-th best (duplicates kept, as
@@ -116,17 +126,19 @@ __device__ __forceinline__ void knn_bins(T px, T py, const T* sx, const T* sy, i
 
 // AOAS: cand_x is the (c_tot, 4) struct array and cand_y is unused.
 // VOTE: votes is (gridDim.x, c_tot / tile_d), one byte per CUDA block and tile.
+// FOLD: best_in (n, K) is carried in; best_out (n, K), or alpha where it is NULL.
 // splits threads share a query; stage_d points a stage (for BINNED with
 // splits > 1 a multiple of sub).  Shared memory: SoA two stages of x and y
 // (4 stage_d values), AOAS one stage of x and y and a landing stage of
 // structs (6 stage_d values); with splits > 1 at least (splits - 1) K
 // values per query of the block for the merge.
-template <typename T, int K, bool AOAS, bool BINNED, bool VOTE>
+template <typename T, int K, bool AOAS, bool BINNED, bool VOTE, bool FOLD>
 __global__ void knn_alpha_kernel(const T* __restrict__ qx, const T* __restrict__ qy,
                                  const T* __restrict__ cand_x, const T* __restrict__ cand_y,
                                  long long row_stride, const int* __restrict__ nt, int block_q,
                                  int c_tot, int tile_d, int sub, int stage_d, int splits,
-                                 AlphaConsts<T> consts, T* __restrict__ alpha, unsigned char* __restrict__ votes) {
+                                 AlphaConsts<T> consts, T* __restrict__ alpha, unsigned char* __restrict__ votes,
+                                 const T* __restrict__ best_in, T* __restrict__ best_out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const smem = reinterpret_cast<T*>(smem_raw);
 
@@ -149,6 +161,12 @@ __global__ void knn_alpha_kernel(const T* __restrict__ qx, const T* __restrict__
   T best[K];
 #pragma unroll
   for (int j = 0; j < K; ++j) best[j] = T(INFINITY);
+  if constexpr (FOLD) {
+    if (part == 0) {  // the carry, in any order, through the insertion
+#pragma unroll
+      for (int j = 0; j < K; ++j) kbest_insert(best, best_in[q * K + j]);
+    }
+  }
 
   // stage s of points [base, base + cnt) into its buffer
   const auto issue = [&](int s, int base) {
@@ -226,6 +244,13 @@ __global__ void knn_alpha_kernel(const T* __restrict__ qx, const T* __restrict__
       for (int j = 0; j < K; ++j) kbest_insert(best, merge[((p - 1) * K + j) * qc + qi]);
     }
   }
+  if constexpr (FOLD) {
+    if (best_out != nullptr) {
+#pragma unroll
+      for (int j = 0; j < K; ++j) best_out[q * K + j] = best[j];
+      return;
+    }
+  }
   alpha[q] = kbest_alpha(best, consts);
 }
 
@@ -242,7 +267,7 @@ template <typename T, int K, bool AOAS>
 cudaError_t launch_k(const T* qx, const T* qy, const T* cx, const T* cy, long long row_stride,
                      const int* nt, int n, int block_q, int c_tot, int tile_d, int nbins,
                      int threads, int splits, AlphaConsts<T> consts, T* alpha, unsigned char* votes,
-                     cudaStream_t stream) {
+                     const T* best_in, T* best_out, cudaStream_t stream) {
   const int qc = threads / splits;
   const int blocks = n / qc;
   const int sub = nbins > 0 ? tile_d / nbins : 0;
@@ -254,27 +279,30 @@ cudaError_t launch_k(const T* qx, const T* qy, const T* cx, const T* cy, long lo
   if (smem > kMaxSharedBytes) return cudaErrorInvalidValue;
   if (AOAS && (votes != nullptr || nbins > 0))
     return cudaErrorInvalidValue;  // the merge count and the bins are SoA-only, as in the reference
-  auto kernel = votes != nullptr ? &knn_alpha_kernel<T, K, false, false, true>
-                : nbins > 0     ? &knn_alpha_kernel<T, K, false, true, false>
-                                : &knn_alpha_kernel<T, K, AOAS, false, false>;
+  auto kernel = best_in != nullptr ? &knn_alpha_kernel<T, K, false, false, false, true>
+                : votes != nullptr ? &knn_alpha_kernel<T, K, false, false, true, false>
+                : nbins > 0        ? &knn_alpha_kernel<T, K, false, true, false, false>
+                                   : &knn_alpha_kernel<T, K, AOAS, false, false, false>;
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
   kernel<<<blocks, threads, smem, stream>>>(qx, qy, cx, cy, row_stride, nt, block_q, c_tot, tile_d, sub, stage_d,
-                                            splits, consts, alpha, votes);
+                                            splits, consts, alpha, votes, best_in, best_out);
   return cudaGetLastError();
 }
 
 // votes != NULL takes the merge count (shared row, no tile table, no bins,
-// splits 1).  threads a CUDA block, splits of them a query: the block's
-// threads / splits queries lie in one candidate row.
+// splits 1); best_in != NULL the fold (shared row, no tile table, no bins,
+// no votes; best_out or alpha, one of them).  threads a CUDA block, splits
+// of them a query: the block's threads / splits queries lie in one
+// candidate row.
 template <typename T, bool AOAS>
 cudaError_t launch(const void* qx, const void* qy, const void* cx, const void* cy,
                    long long row_stride, const void* nt, int n, int block_q, int c_tot, int tile_d,
                    int nbins, int k, int threads, int splits, AlphaConsts<T> c, void* alpha, void* votes,
-                   void* stream) {
+                   void* stream, const void* best_in = nullptr, void* best_out = nullptr) {
   if (n <= 0) return cudaSuccess;
   if (threads <= 0 || threads > 1024 || splits <= 0 || threads % splits != 0) return cudaErrorInvalidValue;
   const int qc = threads / splits;
@@ -282,6 +310,9 @@ cudaError_t launch(const void* qx, const void* qy, const void* cx, const void* c
   if (tile_d <= 0 || nbins < 0 || (nbins > 0 && (tile_d % nbins != 0 || c_tot % tile_d != 0)))
     return cudaErrorInvalidValue;
   if (votes != nullptr && (row_stride != 0 || nt != nullptr || nbins != 0 || c_tot % tile_d != 0 || splits != 1))
+    return cudaErrorInvalidValue;
+  if (best_in != nullptr && (AOAS || row_stride != 0 || nt != nullptr || nbins != 0 || votes != nullptr ||
+                             (best_out == nullptr) == (alpha == nullptr)))
     return cudaErrorInvalidValue;
   const T* a = static_cast<const T*>(qx);
   const T* b = static_cast<const T*>(qy);
@@ -291,10 +322,12 @@ cudaError_t launch(const void* qx, const void* qy, const void* cx, const void* c
   T* out = static_cast<T*>(alpha);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   unsigned char* v = static_cast<unsigned char*>(votes);
+  const T* b_in = static_cast<const T*>(best_in);
+  T* b_out = static_cast<T*>(best_out);
 #define AIDW_K_CASE(KV) \
   case KV:              \
     return launch_k<T, KV, AOAS>(a, b, x, y, row_stride, t, n, block_q, c_tot, tile_d, nbins, threads, splits, \
-                                 c, out, v, s);
+                                 c, out, v, b_in, b_out, s);
   switch (k) {
     AIDW_K_LIST(AIDW_K_CASE)
     default:
@@ -368,3 +401,25 @@ AIDW_KNN_AOAS_ENTRY(aidw_knn_alpha_aoas_f64, double)
 
 AIDW_KNN_V2_ENTRY(aidw_knn_alpha_v2_f32, float)
 AIDW_KNN_V2_ENTRY(aidw_knn_alpha_v2_f64, double)
+
+// The ring's fold (FOLD) on a data shard dx, dy of m points: best_in (n, k)
+// carried in; best_out (n, k) the sorted k-best, or, with best_out NULL
+// (the ring's last step), alpha (n,) with the alpha constants of the whole
+// data count.  threads a CUDA block, splits of them a query: the block's
+// threads / splits queries lie in one block of block_q, which divides n.
+#define AIDW_KNN_FOLD_ENTRY(NAME, T)                                                              \
+  extern "C" cudaError_t NAME(const void* qx, const void* qy, const void* dx, const void* dy,    \
+                              const void* best_in, int n, int block_q, int m, int k, int threads, \
+                              int splits, double r_exp, double pi_over_rmax, double r_min,        \
+                              double r_max, double a1, double a2, double a3, double a4,           \
+                              double a5, void* best_out, void* alpha, void* stream) {             \
+    if (best_in == nullptr) return cudaErrorInvalidValue;                                         \
+    return aidw::launch<T, false>(qx, qy, dx, dy, 0, nullptr, n, block_q, m, m > 0 ? m : 1, 0, k, \
+                                  threads, splits,                                                \
+                                  aidw::make_alpha_consts<T>(r_exp, pi_over_rmax, r_min, r_max,   \
+                                                             a1, a2, a3, a4, a5),                 \
+                                  alpha, nullptr, stream, best_in, best_out);                     \
+  }
+
+AIDW_KNN_FOLD_ENTRY(aidw_knn_fold_f32, float)
+AIDW_KNN_FOLD_ENTRY(aidw_knn_fold_f64, double)

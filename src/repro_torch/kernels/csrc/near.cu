@@ -36,8 +36,15 @@
 //    sums, and one test of the group's minimum d^2 guards the first-minimum
 //    update;
 //  * rows differ in length, and a CUDA block never spans two rows, so the
-//    threads a block come from kernels/aidw_grid.py: near_launch, which
-//    takes fewer for a batch of few rows so they spread over more SMs.
+//    threads a block come from kernels/aidw_grid.py: row_launch, which
+//    takes fewer for a batch of few rows so they spread over more SMs;
+//  * the CUDA blocks take the rows in the order `order` gives, longest
+//    first: a batch of a few hundred rows is one wave, which the block
+//    scheduler deals out over the SMs in block order, so each SM gets one
+//    block of every band of similar lengths.  In row order a SM's share
+//    rested on which long rows fell on it, and one batch's time moved from
+//    one layout of its rows to the next (chip_smoke.py phase 32 times the
+//    launch rule's pick in both orders).
 #include "aidw_common.cuh"
 
 namespace aidw {
@@ -50,16 +57,20 @@ template <typename T>
 __global__ void near_weight_kernel(const T* __restrict__ qx, const T* __restrict__ qy,
                                    const T* __restrict__ ah, const T* __restrict__ cand_x,
                                    const T* __restrict__ cand_y, const T* __restrict__ cand_z,
-                                   const int* __restrict__ nt, int block_q, int c_tot, int tile_d,
+                                   const int* __restrict__ nt, const int* __restrict__ order, int block_q,
+                                   int c_tot, int tile_d,
                                    T tiny, T* __restrict__ sw_out, T* __restrict__ swz_out,
                                    T* __restrict__ md_out, T* __restrict__ hz_out) {
   constexpr int kStage = kNearStageBytes / (4 * static_cast<int>(sizeof(T)));
   static_assert(kStage % kSumRun == 0, "a stage holds whole runs");
   __shared__ __align__(16) T stage[2][4 * kStage];
 
-  const long long first_q = static_cast<long long>(blockIdx.x) * blockDim.x;
-  const long long q = first_q + threadIdx.x;
-  const long long row = first_q / block_q;  // the whole CUDA block lies in this row
+  // the CUDA blocks of one row are consecutive; the rows come in `order`
+  // (NULL: row order).  The whole CUDA block lies in its row.
+  const int per_row = block_q / static_cast<int>(blockDim.x);
+  const int slot = static_cast<int>(blockIdx.x) / per_row;
+  const long long row = order ? order[slot] : slot;
+  const long long q = row * block_q + static_cast<long long>(blockIdx.x % per_row) * blockDim.x + threadIdx.x;
   const T* rx = cand_x + row * c_tot;
   const T* ry = cand_y + row * c_tot;
   const T* rz = cand_z + row * c_tot;
@@ -98,7 +109,8 @@ __global__ void near_weight_kernel(const T* __restrict__ qx, const T* __restrict
 
 template <typename T>
 cudaError_t launch_near(const void* qx, const void* qy, const void* ah, const void* cx, const void* cy,
-                        const void* cz, const void* nt, int n, int block_q, int c_tot, int tile_d,
+                        const void* cz, const void* nt, const void* order, int n, int block_q, int c_tot,
+                        int tile_d,
                         int threads, double tiny, void* sw, void* swz, void* md, void* hz,
                         void* stream) {
   if (n <= 0) return cudaSuccess;
@@ -108,7 +120,7 @@ cudaError_t launch_near(const void* qx, const void* qy, const void* ah, const vo
   near_weight_kernel<T><<<n / threads, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(qx), static_cast<const T*>(qy), static_cast<const T*>(ah),
       static_cast<const T*>(cx), static_cast<const T*>(cy), static_cast<const T*>(cz),
-      static_cast<const int*>(nt), block_q, c_tot, tile_d, static_cast<T>(tiny),
+      static_cast<const int*>(nt), static_cast<const int*>(order), block_q, c_tot, tile_d, static_cast<T>(tiny),
       static_cast<T*>(sw), static_cast<T*>(swz), static_cast<T*>(md), static_cast<T*>(hz));
   return cudaGetLastError();
 }
@@ -117,14 +129,17 @@ cudaError_t launch_near(const void* qx, const void* qy, const void* ah, const vo
 
 // sw, swz, md, hz [q] for q < n.  qx, qy, ah (= alpha / 2): (n,); cand_x,
 // cand_y, cand_z: (n / block_q, c_tot) rows; nt: (n / block_q,) int32 tile
-// counts; threads divides block_q and n; kSumRun divides tile_d.
+// counts; order: NULL or a permutation of the rows, (n / block_q,) int32, in
+// which the CUDA blocks take them; threads divides block_q and n; kSumRun
+// divides tile_d.
 #define AIDW_NEAR_ENTRY(NAME, T)                                                                    \
   extern "C" cudaError_t NAME(const void* qx, const void* qy, const void* ah, const void* cand_x,  \
-                              const void* cand_y, const void* cand_z, const void* nt, int n,        \
-                              int block_q, int c_tot, int tile_d, int threads, double tiny,         \
-                              void* sw, void* swz, void* md, void* hz, void* stream) {              \
-    return aidw::launch_near<T>(qx, qy, ah, cand_x, cand_y, cand_z, nt, n, block_q, c_tot, tile_d, \
-                                threads, tiny, sw, swz, md, hz, stream);                            \
+                              const void* cand_y, const void* cand_z, const void* nt,               \
+                              const void* order, int n, int block_q, int c_tot, int tile_d,         \
+                              int threads, double tiny, void* sw, void* swz, void* md, void* hz,    \
+                              void* stream) {                                                       \
+    return aidw::launch_near<T>(qx, qy, ah, cand_x, cand_y, cand_z, nt, order, n, block_q, c_tot,  \
+                                tile_d, threads, tiny, sw, swz, md, hz, stream);                    \
   }
 
 AIDW_NEAR_ENTRY(aidw_near_weight_f32, float)

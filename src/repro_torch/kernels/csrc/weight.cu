@@ -10,6 +10,13 @@
 // _idw_kernel (launched by idw_tiled_soa, the `idw` impl): the same sweep
 // at one alpha / 2 for every query, passed by value and rounded to the
 // dtype once on the host, as jnp.asarray(alpha * 0.5, dtype) rounds it.
+// With FOLD it is the ring's fold (the port of the jnp scan
+// src/repro/core/distributed.py:86 _fold_weights, which has no Pallas
+// kernel): the same sweep over a data shard, but the four partials (sum_w,
+// sum_wz, min_d2, hit_z) start from the values carried in, each tile's sums
+// are added to them in data order as _fold_weights adds s + sum(tile), the
+// strict `<` keeps the carried minimum on a tie, and the epilogue writes
+// the four partials, or, on the ring's last step, z.
 //
 // The sum order, which fixes the bits: each query sums its weights
 // sequentially inside each tile of tile_d points (the plan's block_d, the
@@ -66,12 +73,16 @@ namespace aidw {
 
 // AOAS: dx is the (m, 4) struct array and dy, dz are unused.
 // CONST_AH: every query takes ah_const and ah is unused.
+// FOLD: carry_in (4, n) holds sum_w, sum_wz, min_d2 and hit_z; the kernel
+// writes them to carry_out (4, n), which may be carry_in, or z to out where
+// carry_out is NULL.
 // One thread a query; stage_d is a multiple of tile_d.
-template <typename T, bool AOAS, bool CONST_AH>
+template <typename T, bool AOAS, bool CONST_AH, bool FOLD>
 __global__ void weight_kernel(const T* __restrict__ qx, const T* __restrict__ qy,
                               const T* __restrict__ ah, const T* __restrict__ dx,
                               const T* __restrict__ dy, const T* __restrict__ dz, int n, int m,
-                              int tile_d, int stage_d, T eps, T tiny, T ah_const, T* __restrict__ out) {
+                              int tile_d, int stage_d, T eps, T tiny, T ah_const, T* __restrict__ out,
+                              const T* carry_in, T* carry_out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sp = reinterpret_cast<T*>(smem_raw);  // stage_d points of {x, y, z, pad}
 
@@ -86,6 +97,14 @@ __global__ void weight_kernel(const T* __restrict__ qx, const T* __restrict__ qy
     neg_ah = live ? -ah[q] : T(0);
   }
   T sum_w = T(0), sum_wz = T(0), min_d2 = T(INFINITY), hit_z = T(0);
+  if constexpr (FOLD) {
+    if (live) {
+      sum_w = carry_in[q];
+      sum_wz = carry_in[n + q];
+      min_d2 = carry_in[2LL * n + q];
+      hit_z = carry_in[3LL * n + q];
+    }
+  }
   const auto point = [sp](int j, T& x, T& y, T& z) { staged_xyz(sp, j, x, y, z); };
 
   for (int base = 0; base < m; base += stage_d) {
@@ -102,13 +121,24 @@ __global__ void weight_kernel(const T* __restrict__ qx, const T* __restrict__ qy
       weight_tile(px, py, neg_ah, t0, min(t0 + tile_d, cnt), point, tiny, sum_w, sum_wz, min_d2, hit_z);
     __syncthreads();
   }
-  if (live) out[q] = (min_d2 <= eps) ? hit_z : sum_wz / sum_w;
+  if (!live) return;
+  if constexpr (FOLD) {
+    if (carry_out != nullptr) {
+      carry_out[q] = sum_w;
+      carry_out[n + q] = sum_wz;
+      carry_out[2LL * n + q] = min_d2;
+      carry_out[3LL * n + q] = hit_z;
+      return;
+    }
+  }
+  out[q] = (min_d2 <= eps) ? hit_z : sum_wz / sum_w;
 }
 
-template <typename T, bool AOAS, bool CONST_AH = false>
+template <typename T, bool AOAS, bool CONST_AH = false, bool FOLD = false>
 cudaError_t launch(const void* qx, const void* qy, const void* ah, const void* dx, const void* dy,
                    const void* dz, int n, int m, int tile_d, int threads, double eps, double tiny, void* out,
-                   void* stream, double ah_const = 0.0) {
+                   void* stream, double ah_const = 0.0, const void* carry_in = nullptr, void* carry_out = nullptr) {
+  if (FOLD && (carry_in == nullptr || (carry_out == nullptr) == (out == nullptr))) return cudaErrorInvalidValue;
   if (n <= 0) return cudaSuccess;
   const size_t point_bytes = 4 * sizeof(T);
   const size_t tile_bytes = static_cast<size_t>(tile_d) * point_bytes;
@@ -116,7 +146,7 @@ cudaError_t launch(const void* qx, const void* qy, const void* ah, const void* d
   const size_t tiles = tile_bytes >= kStageBytes ? 1 : kStageBytes / tile_bytes;
   const int stage_d = static_cast<int>(tiles) * tile_d;
   const size_t smem = static_cast<size_t>(stage_d) * point_bytes;
-  auto kernel = weight_kernel<T, AOAS, CONST_AH>;
+  auto kernel = weight_kernel<T, AOAS, CONST_AH, FOLD>;
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -126,7 +156,8 @@ cudaError_t launch(const void* qx, const void* qy, const void* ah, const void* d
   kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(qx), static_cast<const T*>(qy), static_cast<const T*>(ah), static_cast<const T*>(dx),
       static_cast<const T*>(dy), static_cast<const T*>(dz), n, m, tile_d, stage_d, static_cast<T>(eps),
-      static_cast<T>(tiny), static_cast<T>(ah_const), static_cast<T*>(out));
+      static_cast<T>(tiny), static_cast<T>(ah_const), static_cast<T*>(out), static_cast<const T*>(carry_in),
+      static_cast<T*>(carry_out));
   return cudaGetLastError();
 }
 
@@ -169,3 +200,19 @@ AIDW_WEIGHT_AOAS_ENTRY(aidw_weight_aoas_f64, double)
 
 AIDW_IDW_ENTRY(aidw_idw_f32, float)
 AIDW_IDW_ENTRY(aidw_idw_f64, double)
+
+// The ring's fold (FOLD) on a data shard dx, dy, dz of m points: carry_in
+// (4, n) = sum_w, sum_wz, min_d2, hit_z carried in; carry_out (4, n) the
+// four partials after the shard, or, with carry_out NULL (the ring's last
+// step), z (n,) to out.
+#define AIDW_WEIGHT_FOLD_ENTRY(NAME, T)                                                           \
+  extern "C" cudaError_t NAME(const void* qx, const void* qy, const void* ah, const void* dx,   \
+                              const void* dy, const void* dz, const void* carry_in, int n, int m, \
+                              int tile_d, int threads, double eps, double tiny, void* carry_out,  \
+                              void* out, void* stream) {                                          \
+    return aidw::launch<T, false, false, true>(qx, qy, ah, dx, dy, dz, n, m, tile_d, threads, eps, \
+                                               tiny, out, stream, 0.0, carry_in, carry_out);      \
+  }
+
+AIDW_WEIGHT_FOLD_ENTRY(aidw_weight_fold_f32, float)
+AIDW_WEIGHT_FOLD_ENTRY(aidw_weight_fold_f64, double)

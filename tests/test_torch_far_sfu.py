@@ -15,8 +15,9 @@ their plain versions within ``phase2_near_tolerance`` /
 * B5's plain sweep with the rectangle applied where the kernel stages a
   cell (sentinel centroid, count = z_sum = 0) gives
   ``phase2_far_aggregates_plain``'s bits;
-* the launch rule ``kernels/aidw_grid.py: row_launch`` and the two entry
-  points' ctypes signatures.
+* the launch rule ``kernels/aidw_grid.py: row_launch``, B4's row order
+  ``near_order`` (longest first) with near.cu's block-to-query map, and the
+  two entry points' ctypes signatures.
 """
 
 import re
@@ -38,6 +39,7 @@ from repro_torch.kernels.aidw_grid import (
     phase2_far_tolerance,
     phase2_near_tolerance,
     phase2_near_weights_plain,
+    near_order,
     row_launch,
 )
 
@@ -264,6 +266,31 @@ def test_row_launch_rule(block_q, sms, far):
     # far, a short one (12,288) 64 and 128, 2^20 queries 256 and 256
     assert [row_launch(n, 132) for n in (12288, 81920, 1 << 20)] == [64, 128, 256]
     assert [row_launch(n, 132, far=True) for n in (12288, 81920, 1 << 20)] == [128, 128, 256]
+
+
+@pytest.mark.parametrize("threads", [32, 64, 128, 256])
+def test_near_order_deals_every_query_once_longest_row_first(threads):
+    # near.cu: the CUDA blocks of a row are consecutive and the rows come in
+    # near_order; each query of the batch is swept by exactly one thread
+    block_q, nb = 256, 37
+    nt = torch.as_tensor(np.random.default_rng(5).integers(0, 35, nb), dtype=torch.int32)  # 0-34
+    nt[3] = nt[9] = nt[20] = 35  # ties keep their row order
+    order = near_order(nt)
+    assert order.dtype == torch.int32 and sorted(order.tolist()) == list(range(nb))
+    walks = nt[order.long()].tolist()
+    assert walks == sorted(walks, reverse=True) and order[:3].tolist() == [3, 9, 20]
+    per_row = block_q // threads
+    seen, rows = [], []
+    for block in range(nb * block_q // threads):
+        row = int(order[block // per_row])
+        rows.append(row)
+        seen += [row * block_q + (block % per_row) * threads + t for t in range(threads)]
+    assert sorted(seen) == list(range(nb * block_q))
+    assert [nt[r] for r in rows[::per_row]] == walks
+    src = (_build.CSRC / "near.cu").read_text()
+    assert "const int slot = static_cast<int>(blockIdx.x) / per_row;" in src
+    assert "const long long row = order ? order[slot] : slot;" in src
+    assert ("row * block_q + static_cast<long long>(blockIdx.x % per_row) * blockDim.x + threadIdx.x" in src)
 
 
 @pytest.mark.parametrize("source, macro, names", [
