@@ -177,7 +177,21 @@ in order (a failed check raises, and the script exits nonzero):
     that skip one rotation or drop the carry at one step, 10x outside; the
     fold kernels (``knn.cu`` and ``weight.cu`` with FOLD) against their
     plain versions on one rank's shapes, their SASS per pair, and their
-    CUDA-event times.
+    CUDA-event times;
+38. the LM scaffold's serving path (``repro_torch.launch.serve``), after
+    ``torch.cuda.empty_cache()``: minitron-4b and qwen3-moe-30b-a3b at full
+    published width and depth, random bf16 weights made leaf by leaf on the
+    card, batch 4, prompt 128, 32 generated tokens through the launcher's
+    loop (a first call, then a warm one): prefill ms, decode ms a step,
+    tok/s and peak memory; the tokens in the vocabulary, the logits finite,
+    prefill-then-decode at T against the full forward on T + 1 tokens at
+    full depth and on the first two layers (qwen3-moe at a dropless
+    capacity, each layer's expert choice pinned to the full forward's),
+    with a zeroed cache and a decode one position early as controls, and
+    the first two layers card against the port's CPU path on the same
+    weights and tokens (batch 2, 16 tokens); then the other five ported archs at ``smoke``
+    widths, prefill and three serve steps card against CPU.  The phase adds
+    no kernel: the scaffold has no Pallas kernel to port.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Without a CUDA card,
@@ -1000,6 +1014,7 @@ def main():
     fused_shape_phase(params=params, data=data, queries=queries, time_ms=time_ms)
     rows_out += ring_phase(dev=dev, params=params, data=data, queries=queries, time_ms=time_ms, bound=bound,
                            b2_rtol=b2_rtol, maxerr=maxerr)
+    lm_phase(dev=dev)
     print(f"  total {time.time() - t_start:.1f} s")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3408,6 +3423,240 @@ def serving_phase(*, dev, params, data, queries, sync, maxerr, time_ms, z_tol):
     check(memo["misses"] == 1 and memo["hits"] == 1 and memo["size"] == 1, "(d) one plan build, one miss, one hit")
     ops.plan_cache_clear()
     print(f"  phase 34: {time.time() - t_phase:.1f} s", flush=True)
+
+
+# phase 38: the LM serving runs, (batch, prompt, generated tokens); the
+# card-against-CPU check of the first two layers at full width (batch,
+# tokens), held to the CPU tests' bound on the logits, as a fraction of the
+# CPU's max |logit| (tests/torch_lm_common.py: BOUND); the bound of the
+# smoke archs' card-against-CPU logits; the tolerance of prefill-then-decode
+# against the full forward at full width, at full depth and on the first
+# two layers, dense and MoE alike; and the headroom a full-depth model must
+# leave on the card.  The card's cuBLAS GEMMs sum in another order than the
+# CPU's, and in other orders at other shapes, so now and then a bf16 output
+# rounds the other way, and the difference grows through the layers: at
+# smoke widths up to 1.95e-2 of max |logit| (gemma3-27b, whose tied
+# embeddings keep its logits small); prefill-then-decode 1.68e-2
+# (minitron-4b) at full depth, 8.0e-3 on two layers.  In an MoE layer such
+# a difference can also move a token's top-k across a bf16 near-tie (router
+# logits are bf16 products), which moved qwen3-moe-30b-a3b's logits by
+# 4.2e-2 to 5.5e-2: the check pins each MoE layer's expert choice to the
+# full forward's (``PinnedRouting``), and then reads 1.22e-2 at full depth
+# and 6.6e-3 on two layers.  Its controls, a decode on a zeroed cache and
+# one at position T - 1 (the slot and RoPE one early), must miss by 10x the
+# tolerance; at full depth the latter only by the tolerance, as under random
+# weights qwen3-moe's attention spreads over all 128 positions and that
+# fault moves its logits by 4.6e-2 (minitron-4b's by 2.3e-1).
+LM_RUN, LM_CPU_CHECK, LM_HEADROOM = (4, 128, 32), (2, 16), 8 << 30
+LM_BOUND, LM_SMOKE_BOUND = 2e-2, 5e-2
+LM_DECODE_TOL = {"full depth": 3e-2, "two layers": 1.5e-2}
+LM_FULL = ["minitron-4b", "qwen3-moe-30b-a3b"]
+LM_SMOKE = ["stablelm-12b", "gemma3-27b", "qwen1.5-32b", "mixtral-8x7b", "qwen2-vl-72b"]
+
+
+def lm_rel(got, want):
+    """max |got - want| / max |want| on the CPU, in float64."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+class PinnedRouting:
+    """While in use, pins the MoE layers' expert choice
+    (``repro_torch.models.moe.top_k_stable``).  The first forward records
+    each MoE call's top-k expert ids, in call order; after ``replay(rows,
+    cols)`` every forward reuses the recorded ids of those batch rows and
+    tokens and takes the gates from its own router probabilities, and
+    ``flips`` counts the (call, token) choices its own top-k would have
+    made otherwise, out of ``choices``, since the recording.  A model without MoE layers makes
+    no call."""
+
+    def __init__(self):
+        self.ids, self.at, self.calls, self.flips, self.choices = [], None, 0, 0, 0
+
+    def replay(self, rows, cols):
+        self.at, self.calls = (rows, cols), 0
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.module, self.own = moe, moe.top_k_stable
+        moe.top_k_stable = self
+        return self
+
+    def __exit__(self, *exc):
+        self.module.top_k_stable = self.own
+
+    def __call__(self, probs, k):
+        import torch
+
+        gates, ids = self.own(probs, k)
+        if self.at is None:
+            self.ids.append(ids)
+            return gates, ids
+        pinned = self.ids[self.calls][self.at]
+        self.calls += 1
+        self.flips += int((ids.sort(-1).values != pinned.sort(-1).values).any(-1).sum())
+        self.choices += ids[..., 0].numel()
+        return torch.gather(probs, -1, pinned), pinned
+
+
+def lm_phase(*, dev):
+    """38. The LM scaffold's serving path on the card (see the module's
+    docstring)."""
+    import torch
+
+    from repro_torch.configs import ARCHS, smoke
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import build_model
+    from repro_torch.models import params as pm
+    from repro_torch.train import make_prefill_step, make_serve_step, pad_caches
+
+    print("38. LM serving (repro_torch.launch.serve)")
+    t_phase = time.time()
+    torch.cuda.empty_cache()
+
+    def prefill_then_decode(model, p, tokens):
+        """Last logits of the full forward on ``tokens`` and of a prefill of
+        all but the last token followed by one decode step, with the MoE
+        layers' expert choice pinned to the full forward's; the same step
+        unpinned, on a zeroed cache and at position T - 1 (the controls);
+        and how far the full forward at half the batch moves the logits."""
+        t, half = tokens.shape[1] - 1, tokens.shape[0] // 2
+        serve = make_serve_step(model, model.cfg)
+        pin, out = PinnedRouting(), {}
+        with torch.inference_mode():
+            with pin:
+                h, _, _ = model.apply(p, tokens, mode="train")
+                out["full"] = model.logits(p, h[:, -1])
+                pin.replay(slice(None), slice(None, t))
+                _, caches = make_prefill_step(model, model.cfg)(p, {"tokens": tokens[:, :t]})
+                caches = pad_caches(caches, t + 1)
+                kept = pm.tree_map(torch.clone, caches)
+                n_calls = pin.calls
+                for key, c, pos in (("decode", caches, t), ("zeroed cache", pm.tree_map(torch.zeros_like, kept), t),
+                                    ("position T - 1", pm.tree_map(torch.clone, kept), t - 1)):
+                    pin.replay(slice(None), slice(t, None))
+                    _, out[key], _ = serve(p, c, tokens[:, t:], pos)
+                    n_calls += pin.calls
+                    if key == "decode":
+                        flips = (pin.flips, pin.choices)  # of the prefill and the decode
+                pin.replay(slice(None, half), slice(None))
+                h2, _, _ = model.apply(p, tokens[:half], mode="train")
+                n_calls += pin.calls
+                check(n_calls == 5 * len(pin.ids), f"{model.cfg.name}: every MoE call replayed the full forward's ids")
+                floor = lm_rel(model.logits(p, h2[:, -1]), out["full"][:half])
+            _, out["unpinned"], _ = serve(p, kept, tokens[:, t:], t)
+        return out, floor, len(pin.ids), flips
+
+    def decode_check(name, cfg, p, tokens, depth, label):
+        """Prefill-then-decode against the full forward on ``depth`` layers
+        (MoE at a dropless capacity: the published 1.25 drops other tokens
+        in a group of T + 1 than in one of 1), with its controls."""
+        t, tol = tokens.shape[1] - 1, LM_DECODE_TOL[label]
+        cfg = dataclasses.replace(cfg, groups=(dataclasses.replace(cfg.groups[0], repeats=depth),),
+                                  moe_capacity_factor=float(cfg.n_experts or cfg.moe_capacity_factor))
+        runs, floor, n_moe, (flips, choices) = prefill_then_decode(build_model(cfg), p, tokens)
+        full = runs.pop("full")
+        check(all(bool(torch.isfinite(v).all()) for v in (full, *runs.values())), f"{name}: logits finite")
+        errs = {key: lm_rel(v, full) for key, v in runs.items()}
+        need = {"zeroed cache": 10 * tol, "position T - 1": (1 if label == "full depth" else 10) * tol}
+        print(f"    {depth} layers, prefill {t} then decode against the full forward on {t + 1} tokens: "
+              f"{errs['decode']:.3e} of max |logit| (tolerance {tol}); the full forward at half the batch moves "
+              f"it {floor:.3e}")
+        if n_moe:
+            print(f"      expert choice pinned to the full forward's in {n_moe} MoE layers: the prefill's and the "
+                  f"decode's own top-k differ in {flips} of {choices} (layer, token) choices; unpinned, the "
+                  f"decode misses by {errs['unpinned']:.3e}")
+        print(f"      controls: a decode on a zeroed cache misses by {errs['zeroed cache']:.3e} (must reach "
+              f"{need['zeroed cache']:.3g}), a decode at position {t - 1} by {errs['position T - 1']:.3e} "
+              f"(must reach {need['position T - 1']:.3g})")
+        check(errs["decode"] <= tol, f"{name}, {depth} layers: prefill-then-decode matches the full forward")
+        for key, limit in need.items():
+            check(errs[key] >= limit, f"{name}, {depth} layers: the control ({key}) misses")
+
+    for name in LM_FULL:
+        t_arch = time.time()
+        cfg = ARCHS[name]
+        model = build_model(cfg)
+        n_params = pm.count_params(model.spec())
+        free, _ = torch.cuda.mem_get_info()
+        layers = cfg.n_layers
+        if 2 * n_params + LM_HEADROOM > free:
+            layers = cfg.n_layers // 2
+            cfg = dataclasses.replace(cfg, groups=(dataclasses.replace(cfg.groups[0], repeats=layers),))
+            model = build_model(cfg)
+            print(f"  {name}: {2 * n_params / 1e9:.1f} GB of bf16 weights and {LM_HEADROOM >> 30} GiB of headroom "
+                  f"do not fit the {free / 1e9:.1f} GB free: full width, {layers} of {ARCHS[name].n_layers} layers")
+            n_params = pm.count_params(model.spec())
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device=dev).manual_seed(0)
+        t0 = time.perf_counter()
+        p = pm.materialize(model.spec(), gen, dev, torch.bfloat16)
+        torch.cuda.synchronize()
+        t_mat = time.perf_counter() - t0
+        b, t, n_gen = LM_RUN
+        tokens = torch.randint(0, cfg.vocab_size, (b, t), generator=gen, device=dev)
+        out, tp0, td0 = generate(model, p, tokens, n_gen)
+        out, tp, td = generate(model, p, tokens, n_gen)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"  {name}: {n_params / 1e9:.3f}e9 parameters, {layers} layers, bf16 on the card, made in {t_mat:.2f} s; "
+              f"batch {b}, prompt {t}, {n_gen} tokens")
+        print(f"    first call: prefill {tp0 * 1e3:.1f} ms, decode {td0 * 1e3 / (n_gen - 1):.2f} ms a step")
+        print(f"    warm: prefill {tp * 1e3:.1f} ms, decode {td * 1e3 / (n_gen - 1):.2f} ms a step, "
+              f"{(n_gen - 1) * b / td:.1f} tok/s; peak memory {peak / 1e9:.2f} GB "
+              f"(max_memory_allocated)")
+        check(out.shape == (b, n_gen) and int(out.min()) >= 0 and int(out.max()) < cfg.vocab_size,
+              f"{name}: generated tokens in the vocabulary")
+        p2 = dict(p, stacks={"g0": pm.tree_map(lambda x: x[:2], p["stacks"]["g0"])})
+        ext = torch.cat([tokens, out[:, :1]], dim=1)
+        decode_check(name, cfg, p, ext, layers, "full depth")
+        decode_check(name, cfg, p2, ext, 2, "two layers")
+        # the first two layers at full width, card against the port's CPU path
+        m2 = build_model(dataclasses.replace(cfg, groups=(dataclasses.replace(cfg.groups[0], repeats=2),)))
+        bc, tc = LM_CPU_CHECK
+        toks2 = tokens[:bc, :tc]
+        with torch.inference_mode():
+            h_card, _, _ = m2.apply(p2, toks2, mode="train")
+            l_card = m2.logits(p2, h_card[:, -1])
+            p2_cpu = pm.tree_map(lambda x: x.cpu(), p2)
+            h_cpu, _, _ = m2.apply(p2_cpu, toks2.cpu(), mode="train")
+            l_cpu = m2.logits(p2_cpu, h_cpu[:, -1])
+        eh, el = lm_rel(h_card, h_cpu), lm_rel(l_card, l_cpu)
+        print(f"    two layers, batch {bc}, {tc} tokens, card against CPU: last logits {el:.3e} of max |logit| "
+              f"(tolerance {LM_BOUND}); hidden states {eh:.3e} of max |h|")
+        check(el <= LM_BOUND, f"{name}: two layers on the card match the CPU path")
+        print(f"    {name}: {time.time() - t_arch:.1f} s")
+        del p, p2, p2_cpu, out
+        torch.cuda.empty_cache()
+
+    for name in LM_SMOKE:
+        cfg = dataclasses.replace(smoke(ARCHS[name]), moe_capacity_factor=8.0)
+        model = build_model(cfg)
+        p_cpu = pm.materialize(model.spec(), torch.Generator().manual_seed(1), "cpu")
+        p_card = pm.tree_map(lambda x: x.to(dev), p_cpu)
+        rng = np.random.default_rng(2)
+        toks = torch.tensor(rng.integers(0, cfg.vocab_size, (2, 24)))
+        extra = {}
+        if cfg.family == "vlm":
+            extra["visual_embeds"] = torch.tensor(rng.standard_normal((2, cfg.n_vis_tokens, cfg.d_model)) * 0.1)
+        errs = []
+        with torch.inference_mode():
+            runs = []
+            for p_, d_ in ((p_cpu, torch.device("cpu")), (p_card, dev)):
+                batch = {"tokens": toks.to(d_), **{k: v.float().to(d_) for k, v in extra.items()}}
+                logits, caches = make_prefill_step(model, cfg)(p_, batch)
+                runs.append([p_, d_, logits, pad_caches(caches, 24 + 3)])
+            errs.append(lm_rel(runs[1][2], runs[0][2]))
+            tok = torch.argmax(runs[0][2], -1).to(torch.int32)[:, None]  # both take the CPU's tokens
+            serve = make_serve_step(model, cfg)
+            for i in range(3):
+                outs = [serve(p_, c_, tok.to(d_), 24 + i) for p_, d_, _, c_ in runs]
+                errs.append(lm_rel(outs[1][1], outs[0][1]))
+                tok = outs[0][0]
+        print(f"  {name} (smoke): prefill and 3 serve steps, card against CPU: "
+              f"{', '.join(f'{e:.3e}' for e in errs)} of max |logit| (tolerance {LM_SMOKE_BOUND})")
+        check(max(errs) <= LM_SMOKE_BOUND, f"{name}: smoke serving on the card matches the CPU path")
+    print(f"  phase 38: {time.time() - t_phase:.1f} s")
 
 
 def execute_with_stats_quiet(plan, qx, qy):

@@ -20,6 +20,9 @@ import torch
 from repro_torch.core.knn import running_k_best
 from repro_torch.core.layouts import coord_sentinel, pad_to
 
+# Knots of the Eq. (6) triangular-membership map.
+MU_KNOTS = (0.0, 0.1, 0.3, 0.5, 0.7, 0.9, 1.0)
+
 # Default five decay levels a1..a5 (the paper does not publish its values).
 DEFAULT_ALPHA_LEVELS = (0.5, 1.0, 2.0, 3.0, 4.0)
 

@@ -144,17 +144,22 @@ def _local(arrays):
     return [torch.as_tensor(a, device=dev).contiguous() for a in arrays]
 
 
-def _check_shards(ring: _Ring, m_l: int, n_l: int, d_chunk: int, device) -> tuple[int, int]:
+def _check_shards(ring: _Ring, m_l: int, n_l: int, q_chunk: int, d_chunk: int, device) -> tuple[int, int]:
     """``(m_total, tile)``: the global data count and the fold's tile,
-    ``min(d_chunk, m_l)``.  Every rank checks the same gathered shard sizes,
-    so a layout the reference would reject raises ``ValueError`` on every
-    rank alike, before the ring moves any data (no rank is left waiting)."""
+    ``min(d_chunk, m_l)``.  A query shard must divide into
+    ``min(q_chunk, n_l)`` rows, as the reference's ``reshape(-1, q_chunk)``
+    requires.  Every rank checks the same gathered shard sizes, so a layout
+    the reference would reject raises ``ValueError`` on every rank alike,
+    before the ring moves any data (no rank is left waiting)."""
     mine = torch.tensor([m_l, n_l], dtype=torch.int64, device=device if "nccl" in ring.backend else "cpu")
     sizes = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
     dist.all_gather(sizes, mine)
     if len({tuple(s.tolist()) for s in sizes}) != 1:
         raise ValueError(f"shards of unequal size (data, queries) {sorted({tuple(s.tolist()) for s in sizes})}: "
                          f"the global sizes must divide into {ring.n} shards (the launcher pads)")
+    rows = min(q_chunk, n_l)
+    if rows <= 0 or n_l % rows:
+        raise ValueError(f"a query shard of {n_l} queries does not divide into q_chunk={q_chunk} rows")
     tile = min(d_chunk, m_l)
     if tile <= 0 or m_l % tile:
         raise ValueError(f"a data shard of {m_l} points does not divide into d_chunk={d_chunk} tiles")
@@ -176,20 +181,23 @@ def _fold_weights(carry, ah, qx_l, qy_l, cx, cy, cz, d_chunk, *, eps: float, fin
 
 
 def ring_aidw(mesh, dx, dy, dz, qx, qy, *, params: AIDWParams, area: float,
-              axis_names: Sequence[str] | str | None = None, d_chunk: int = 2048):
+              axis_names: Sequence[str] | str | None = None, q_chunk: int = 1024, d_chunk: int = 2048):
     """Fully sharded AIDW over ``mesh`` (a ``DeviceMesh`` with named dims),
     called on every rank with its shards.
 
     Queries AND data are sharded over the flattened ``axis_names`` (default:
     all mesh dims), as :func:`local_shard` cuts them.  Every rank's shards
-    have one size (the launcher pads) and a data shard divides into
-    ``d_chunk`` tiles, else ``ValueError`` on every rank.  The data shards
+    have one size (the launcher pads), a query shard divides into
+    ``min(q_chunk, n_l)`` rows and a data shard into ``d_chunk`` tiles, else
+    ``ValueError`` on every rank.  ``q_chunk`` is the reference's query
+    tile; the fold kernels hold no query tile, so it checks the layout and
+    changes no bits.  The data shards
     rotate ``n - 1`` times a phase (the reference's n-th brings them home
     unused).  Returns ``(z_hat, alpha)`` for this rank's queries.
     """
     ring = _Ring(mesh, axis_names)
     dx, dy, dz, qx, qy = _local([dx, dy, dz, qx, qy])
-    m_total, dc = _check_shards(ring, dx.shape[0], qx.shape[0], d_chunk, qx.device)
+    m_total, dc = _check_shards(ring, dx.shape[0], qx.shape[0], q_chunk, d_chunk, qx.device)
     kw = dict(params=params, area=area, m_total=m_total)
 
     # ---- phase 1: ring kNN ----
@@ -217,7 +225,8 @@ def ring_aidw(mesh, dx, dy, dz, qx, qy, *, params: AIDWParams, area: float,
 
 
 def ring_aidw_rotate_queries(mesh, dx, dy, dz, qx, qy, *, params: AIDWParams, area: float,
-                             axis_names: Sequence[str] | str | None = None, d_chunk: int = 2048):
+                             axis_names: Sequence[str] | str | None = None, q_chunk: int = 1024,
+                             d_chunk: int = 2048):
     """:func:`ring_aidw` with the QUERIES and their running state rotating
     around the ring instead of the data shards, which never move.
 
@@ -226,12 +235,13 @@ def ring_aidw_rotate_queries(mesh, dx, dy, dz, qx, qy, *, params: AIDWParams, ar
     slab is home.  The last fold of each phase (on the rank before home)
     sends alpha, then z, home in place of the state.  The same folds in
     another hand: the results are those of the data ring with each slab's
-    shards visited in the order ``r, r + 1, ...``.  Returns ``(z_hat,
-    alpha)`` for this rank's queries.
+    shards visited in the order ``r, r + 1, ...``.  ``q_chunk`` and
+    ``d_chunk`` are checked as :func:`ring_aidw` checks them.  Returns
+    ``(z_hat, alpha)`` for this rank's queries.
     """
     ring = _Ring(mesh, axis_names)
     dx, dy, dz, qx, qy = _local([dx, dy, dz, qx, qy])
-    m_total, dc = _check_shards(ring, dx.shape[0], qx.shape[0], d_chunk, qx.device)
+    m_total, dc = _check_shards(ring, dx.shape[0], qx.shape[0], q_chunk, d_chunk, qx.device)
     kw = dict(params=params, area=area, m_total=m_total)
 
     # ---- phase 1: queries + k-best circulate ----

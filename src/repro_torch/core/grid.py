@@ -310,6 +310,16 @@ def static_cell_radius(grid: UniformGrid, r_need_table):
                          cover_radius(grid, xs, ys))
 
 
+def safe_radius(grid: UniformGrid, qx, qy, k: int):
+    """Ring radius guaranteed, from occupancy alone, to contain the true k
+    nearest neighbours of each query: :func:`required_radius` of its
+    clamped home cell, corrected by :func:`safe_radius_from_need` for the
+    query's overhang outside the grid.  Returns ``(cx, cy, r_safe)``."""
+    cx, cy = cell_of(grid, qx, qy)
+    r_need = required_radius(grid, cx, cy, k)
+    return cx, cy, safe_radius_from_need(grid, qx, qy, cx, cy, r_need)
+
+
 def safe_radius_from_need(grid: UniformGrid, qx, qy, cx, cy, r_need):
     """Containment-safe ring radius from the home cell and its
     ``required_radius``, corrected for the query's overhang beyond its

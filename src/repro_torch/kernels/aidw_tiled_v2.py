@@ -78,13 +78,22 @@ def knn_alpha_v2(qx, qy, dx, dy, *, block_q: int, tile_d: int, params: AIDWParam
     return alpha, merged.sum(dim=1, dtype=torch.int32)
 
 
+def aidw_knn_v2(dx, dy, qx, qy, *, params: AIDWParams, area: float, m_real: int, block_q: int = 256,
+                block_d: int = 512):
+    """The threshold-skip kNN pass under the reference's name and argument
+    order (data first): :func:`knn_alpha_v2` at a ``block_d`` tile.  Inputs
+    pre-padded as :func:`aidw_tiled_v2_soa`.  Returns ``(alpha (n,),
+    merges_per_block (n // block_q,) int32)``."""
+    return knn_alpha_v2(qx, qy, dx, dy, block_q=block_q, tile_d=block_d, params=params, area=area, m_real=m_real)
+
+
 def aidw_tiled_v2_soa(dx, dy, dz, qx, qy, *, params: AIDWParams, area: float, m_real: int, block_q: int = 256,
                       block_d: int = 512):
     """The threshold-skip kNN pass, then the exact weight sweep.  Inputs
     pre-padded as :func:`repro_torch.kernels.aidw_tiled.aidw_tiled_soa`.
     Returns ``(z_hat, alpha, merges)``: ``(n,)``, ``(n,)`` and
     ``(n // block_q,)`` int32."""
-    alpha, merges = knn_alpha_v2(qx, qy, dx, dy, block_q=block_q, tile_d=block_d, params=params, area=area,
-                                 m_real=m_real)
+    alpha, merges = aidw_knn_v2(dx, dy, qx, qy, params=params, area=area, m_real=m_real, block_q=block_q,
+                                block_d=block_d)
     z = weight_sweep(qx, qy, alpha * 0.5, dx, dy, dz, tile_d=block_d, eps=params.exact_hit_eps)
     return z, alpha, merges

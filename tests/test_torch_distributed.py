@@ -78,9 +78,18 @@ for name, (fn, dtype, axes, d_chunk, data) in R.SCENARIOS.items():
     kw = {} if d_chunk is None else {"d_chunk": d_chunk}
     if fn != "sharded_queries_aidw":
         kw["axis_names"] = axes
+    if name in R.Q_CHUNK:
+        kw["q_chunk"] = R.Q_CHUNK[name]
     with x64(dtype == "float64"):
         z, a = getattr(D, fn)(mesh, *(x.astype(dtype) for x in inputs[data]), params=params, area=R.AREA, **kw)
         res[name + "/z"], res[name + "/alpha"] = np.asarray(z), np.asarray(a)
+for case, (fn, q_chunk) in R.Q_CHUNK_REJECTED.items():
+    try:
+        getattr(D, fn)(mesh, *(x.astype("float32") for x in inputs["clustered"]), params=params, area=R.AREA,
+                       q_chunk=q_chunk)
+        res["rejected/" + case] = np.array(False)
+    except Exception:  # the reference fails in its reshape, with whatever error jax gives
+        res["rejected/" + case] = np.array(True)
 np.savez(sys.argv[1], **res)
 print("OK jax ring 8dev")
 """
@@ -206,6 +215,8 @@ def test_exact_hit_tie_follows_the_visiting_order(runs, name, order):
     ("d_chunk", r"a data shard of 128 points does not divide into d_chunk=48 tiles"),
     ("local_shard", r"a global size of 1001 does not divide into 8 shards"),
     ("axis_names", r"must name distinct dims of the mesh"),
+    ("q_chunk", r"a query shard of 64 queries does not divide into q_chunk=48 rows"),
+    ("q_chunk_zero", r"a query shard of 64 queries does not divide into q_chunk=0 rows"),
 ])
 def test_rejected_layouts_raise_on_every_rank(runs, case, message):
     # every rank raises the same ValueError, so none is left waiting in the ring
@@ -213,6 +224,22 @@ def test_rejected_layouts_raise_on_every_rank(runs, case, message):
     got = [r["errors"][case] for r in ranks]
     assert all(g is not None and re.search(message, g) for g in got), got
     assert len(set(got)) == 1
+
+
+@pytest.mark.parametrize("case", list(R.Q_CHUNK_REJECTED))
+def test_reference_rejects_the_same_q_chunk_layouts(runs, case):
+    # the layouts the port refuses with ValueError are those the JAX rings
+    # cannot reshape into q_chunk rows
+    assert bool(runs[1]["rejected/" + case])
+
+
+@pytest.mark.parametrize("name", list(R.Q_CHUNK))
+def test_q_chunk_changes_no_bits(runs, name):
+    # the fold kernels hold no query tile: q_chunk gives the bits of the
+    # same ring at its default
+    twin = next(n for n, s in R.SCENARIOS.items() if n not in R.Q_CHUNK and s == R.SCENARIOS[name])
+    for got, want in zip(_port(runs, name), _port(runs, twin)):
+        assert np.array_equal(got, want)
 
 
 @pytest.mark.parametrize("name", ["ring-f32", "ring-data-f32", "ringq-f64", "sharded-f32"])

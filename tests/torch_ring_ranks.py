@@ -25,7 +25,15 @@ SCENARIOS = {
     "sharded-f64": ("sharded_queries_aidw", "float64", None, None, "clustered"),
     "tie-ring-f32": ("ring_aidw", "float32", None, 64, "tie"),
     "tie-ringq-f32": ("ring_aidw_rotate_queries", "float32", None, 64, "tie"),
+    "ring-qc-f32": ("ring_aidw", "float32", None, None, "clustered"),
+    "ringq-qc-f32": ("ring_aidw_rotate_queries", "float32", None, 64, "clustered"),
 }
+# name -> q_chunk, passed as the reference's launcher passes it: 32 divides
+# a 64-query shard; 1,000 does not divide the global 512 (min(1000, 64) rows)
+Q_CHUNK = {"ring-qc-f32": 32, "ringq-qc-f32": 1000}
+# rejected q_chunk layouts: case -> (function, q_chunk); a 64-query shard
+# does not divide into 48 rows, nor into min(0, 64) = 0
+Q_CHUNK_REJECTED = {"q_chunk": ("ring_aidw", 48), "q_chunk_zero": ("ring_aidw_rotate_queries", 0)}
 
 
 def make_inputs():
@@ -61,6 +69,8 @@ def run(rank, world, inputs):
     for name, (fn, dtype, axes, d_chunk, data) in SCENARIOS.items():
         dx, dy, dz, qx, qy = (torch.as_tensor(a).to(getattr(torch, dtype)) for a in inputs[data])
         kw = {} if d_chunk is None else {"d_chunk": d_chunk}
+        if name in Q_CHUNK:
+            kw["q_chunk"] = Q_CHUNK[name]
         D.reset_transfer_counts()
         if fn == "sharded_queries_aidw":
             q = [D.local_shard(mesh, a) for a in (qx, qy)]
@@ -80,6 +90,9 @@ def run(rank, world, inputs):
         "local_shard": lambda: D.local_shard(mesh, dx[:1001]),
         "axis_names": lambda: D.ring_aidw(mesh, *shards, params=params, area=AREA, axis_names=("data", "pipe")),
     }
+    for case, (fn, q_chunk) in Q_CHUNK_REJECTED.items():
+        cases[case] = lambda fn=fn, q_chunk=q_chunk: getattr(D, fn)(mesh, *shards, params=params, area=AREA,
+                                                                    q_chunk=q_chunk)
     for case, call in cases.items():
         try:
             call()
